@@ -1,0 +1,227 @@
+"""Public SpMV kernel API: schedule-aware preparation + dispatch.
+
+``prepare`` converts a dense matrix into the requested format with storage
+geometry matched to a ``KernelSchedule`` (the compile-time parameters the
+Auto-SpMV predictor emits) and puts it on ``device``; ``spmv`` runs the
+matching kernel on the container's device. Both are thin lookups into the
+pluggable format registry (``repro_torch.sparse.registry``): the per-format
+conversion, alignment padding, feasibility checks, and kernel binding live
+on each ``FormatSpec``, so a format registered at runtime is served here
+with no code change.
+
+``device=None`` means ``"cuda"`` everywhere and raises where CUDA is absent;
+the CPU (plain PyTorch versions) is used only when the caller names it.
+
+The registry import is deliberately lazy (inside the functions): this module
+is imported by ``repro_torch.kernels.__init__``, which the sparse substrate
+itself imports for the tiling constants — a module-level registry import
+would close that cycle during package initialization.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Any, Hashable
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.common import (
+    DEFAULT_SCHEDULE,
+    InfeasibleConfig,  # noqa: F401  (canonical home moved to kernels.common)
+    KernelSchedule,
+    resolve_device,
+)
+from repro_torch.obs.metrics import get_metrics
+from repro_torch.obs.trace import span as _span
+
+# memo counters mirrored into the process metrics registry so a metrics
+# export sees kernel-compile economics without importing this module
+_M_HITS = get_metrics().counter("spmv_kernel_memo_hits_total")
+_M_COMPILES = get_metrics().counter("spmv_kernel_memo_compiles_total")
+_M_EVICTIONS = get_metrics().counter("spmv_kernel_memo_evictions_total")
+
+
+def prepare(
+    dense: np.ndarray,
+    fmt: str,
+    schedule: KernelSchedule = DEFAULT_SCHEDULE,
+    *,
+    device: str | torch.device | None = None,
+) -> Any:
+    """Convert ``dense`` to ``fmt`` with schedule-aligned storage geometry."""
+    from repro_torch.sparse.registry import get_format
+
+    return get_format(fmt).prepare(
+        np.asarray(dense), schedule, device=resolve_device(device)
+    )
+
+
+def spmv(
+    mat: Any, x, schedule: KernelSchedule = DEFAULT_SCHEDULE
+) -> torch.Tensor:
+    """Run the SpMV kernel matching ``type(mat)`` on the container's device;
+    returns y: (n_rows,). ``x`` may be a tensor or a host array."""
+    from repro_torch.sparse.registry import spec_for
+
+    return spec_for(mat).spmv(mat, x, schedule)
+
+
+@dataclass(frozen=True)
+class PreparedSpmv:
+    """A (format, schedule)-specialized SpMV — what compile-time mode emits."""
+
+    mat: Any  # a registered format container (CSR / ELL / BELL / SELL / plugin)
+    schedule: KernelSchedule
+    device: torch.device
+
+    def __call__(self, x) -> torch.Tensor:
+        return spmv(self.mat, x, self.schedule)
+
+
+def matrix_fingerprint(dense: np.ndarray) -> str:
+    """Content hash of a dense-held matrix — the kernel-memo identity.
+
+    Two matrices with equal bytes/shape/dtype share every prepared kernel;
+    the session layer uses this to deduplicate batched tuning requests.
+    """
+    a = np.ascontiguousarray(np.asarray(dense))
+    h = hashlib.sha256()
+    h.update(str((a.shape, str(a.dtype))).encode())
+    h.update(a.tobytes())
+    return h.hexdigest()[:32]
+
+
+# Process-wide LRU memo of prepared kernels, keyed by (caller key, fmt,
+# schedule, device). Opt-in via ``compile_spmv(..., memo_key=...)`` so
+# one-off callers don't pin large format storage. Bounded: each entry holds
+# the full converted matrix storage on its device, so an unbounded memo on a
+# serving path streaming distinct matrices would grow memory until OOM.
+_KERNEL_MEMO: "OrderedDict[tuple, object]" = OrderedDict()
+_MEMO_STATS = {"hits": 0, "compiles": 0, "evictions": 0}
+_MEMO_LIMIT = 256
+
+
+def kernel_memo_stats() -> dict[str, int]:
+    """Copy of the process-wide memo counters (hits / compiles / evictions)."""
+    return dict(_MEMO_STATS)
+
+
+def kernel_memo_size() -> int:
+    return len(_KERNEL_MEMO)
+
+
+def kernel_memo_limit() -> int:
+    return _MEMO_LIMIT
+
+
+def _evict_over_limit() -> None:
+    while len(_KERNEL_MEMO) > _MEMO_LIMIT:
+        _KERNEL_MEMO.popitem(last=False)
+        _MEMO_STATS["evictions"] += 1
+        _M_EVICTIONS.inc()
+
+
+def set_kernel_memo_limit(limit: int) -> None:
+    """Resize the LRU bound (evicts immediately if shrinking)."""
+    global _MEMO_LIMIT
+    if limit < 1:
+        raise ValueError("kernel memo limit must be >= 1")
+    _MEMO_LIMIT = limit
+    _evict_over_limit()
+
+
+def kernel_memoized(
+    memo_key: Hashable,
+    fmt: str,
+    schedule: KernelSchedule = DEFAULT_SCHEDULE,
+    *,
+    device: str | torch.device | None = None,
+) -> bool:
+    """Whether ``compile_spmv`` with these arguments would be a memo hit.
+
+    Lets the session's amortized-overhead accounting charge the conversion
+    term only when conversion will actually run."""
+    return (memo_key, fmt, schedule, resolve_device(device)) in _KERNEL_MEMO
+
+
+def clear_kernel_memo() -> None:
+    _KERNEL_MEMO.clear()
+
+
+def evict_kernel_memo_format(fmt: str) -> int:
+    """Drop every memoized kernel of one format.
+
+    Called by the registry when a format is unregistered or re-registered:
+    a memoized ``PreparedSpmv`` must not outlive the ``FormatSpec`` that
+    built it (its container would no longer resolve in ``spec_for``, or
+    would silently run the old implementation)."""
+    stale = [k for k in _KERNEL_MEMO if k[1] == fmt]
+    for k in stale:
+        del _KERNEL_MEMO[k]
+        _MEMO_STATS["evictions"] += 1
+        _M_EVICTIONS.inc()
+    return len(stale)
+
+
+def compile_spmv(
+    dense: np.ndarray,
+    fmt: str,
+    schedule: KernelSchedule = DEFAULT_SCHEDULE,
+    *,
+    device: str | torch.device | None = None,
+    memo_key: Hashable | None = None,
+) -> PreparedSpmv:
+    """prepare + bind: the full compile-time-mode product.
+
+    With ``memo_key`` (typically ``matrix_fingerprint(dense)``) the prepared
+    kernel is memoized process-wide: repeated compilation requests for the
+    same (matrix, format, schedule, device) return the existing
+    ``PreparedSpmv`` without re-running conversion — the ``c`` term of the
+    §5.3 overhead model is paid once per unique matrix (until LRU
+    eviction). The device is part of the key, so CPU and CUDA kernels never
+    alias."""
+    device = resolve_device(device)
+    if memo_key is not None:
+        key = (memo_key, fmt, schedule, device)
+        hit = _KERNEL_MEMO.get(key)
+        if hit is not None:
+            _MEMO_STATS["hits"] += 1
+            _M_HITS.inc()
+            _KERNEL_MEMO.move_to_end(key)
+            return hit
+    with _span("kernel.compile", fmt=fmt):
+        prepared = PreparedSpmv(prepare(dense, fmt, schedule, device=device), schedule, device)
+    if memo_key is not None:
+        # counters cover memoized traffic only, so hits/(hits+compiles) is a
+        # true memo hit rate (plain one-off compiles don't skew it)
+        _MEMO_STATS["compiles"] += 1
+        _M_COMPILES.inc()
+        _KERNEL_MEMO[key] = prepared
+        _evict_over_limit()
+    return prepared
+
+
+def compile_spmv_block(
+    dense: np.ndarray,
+    row_start: int,
+    row_end: int,
+    fmt: str,
+    schedule: KernelSchedule = DEFAULT_SCHEDULE,
+    *,
+    device: str | torch.device | None = None,
+    memo_key: Hashable | None = None,
+) -> PreparedSpmv:
+    """``compile_spmv`` for one row block of a larger matrix.
+
+    The memo identity composes the caller's whole-matrix key with the row
+    range, so per-block kernels are memoized (and LRU-evicted, and
+    format-evicted) exactly like whole-matrix kernels — two composite plans
+    over the same matrix share every block they agree on, without colliding
+    with the monolithic kernel for the same matrix.
+    """
+    block = np.asarray(dense)[row_start:row_end]
+    key = (memo_key, row_start, row_end) if memo_key is not None else None
+    return compile_spmv(block, fmt, schedule, device=device, memo_key=key)
