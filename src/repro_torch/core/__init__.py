@@ -39,6 +39,7 @@ from repro_torch.core.overhead import OverheadPredictor, OverheadSample, measure
 from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig
 from repro_torch.core.session import (
     AutoSpmvSession,
+    PartitionedResult,
     ServedPlan,
     SessionStats,
     build_tuner,
@@ -71,6 +72,7 @@ __all__ = [
     "CompileTimeResult",
     "RunTimePlan",
     "RunTimeResult",
+    "PartitionedResult",
     "ServedPlan",
     "SessionStats",
     "TuningCache",

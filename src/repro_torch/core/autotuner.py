@@ -154,6 +154,36 @@ class AutoSpMV:
         )
         return RunTimePlan(best_fmt, gain, lat_cur - lat_new, oh, c_term)
 
+    def plan_partitioned(
+        self,
+        dense: np.ndarray,
+        objective: str = "latency",
+        *,
+        block_counts: tuple[int, ...] | None = None,
+        cost_model=None,
+    ):
+        """Partitioned run-time mode: split the matrix into nnz-balanced row
+        blocks, run the format/schedule predictors per block, and search
+        block counts {1, 2, 4, 8} — the monolithic plan stays the baseline
+        and wins ties, so homogeneous matrices keep one block. Returns a
+        ``repro_torch.partition.plan.CompositePlan``.
+
+        Unlike ``plan_compile_time``/``plan_run_time`` this takes the dense
+        matrix, not just features: block boundaries and per-block stats need
+        the actual row histogram. The import is lazy — ``repro_torch.partition``
+        sits above ``repro_torch.core`` in the layering.
+        """
+        from repro_torch.partition.partitioner import SUPPORTED_BLOCK_COUNTS
+        from repro_torch.partition.plan import plan_partitioned
+
+        counts = (
+            tuple(block_counts) if block_counts is not None else SUPPORTED_BLOCK_COUNTS
+        )
+        return plan_partitioned(
+            self.predictor, dense, objective, block_counts=counts,
+            cost_model=cost_model,
+        )
+
     # ------------------------------------------------------------ compile time
     def compile_time_optimize(
         self, dense: np.ndarray, objective: str = "latency"

@@ -31,9 +31,14 @@ drift verdict invalidates the stale cache entries so the next request
 re-plans. Both collaborators are duck-typed — the session never imports a
 telemetry package, so ``repro_torch.core`` stays import-cycle-free.
 
-Not in this slice (see ROADMAP.md): partitioned plans
-(``partitioned_optimize``/``serve_partitioned``/``observe_partitioned``),
-the SpMSpV path (``compile_spmspv``) and ``calibrate``.
+Partitioned plans (``partitioned_optimize``) are cached per feature bucket
+under a ``part:max<k>`` mode and replayed onto each matrix's own row
+boundaries; with ``fused=True`` the composite runs as one launch. A
+``cost_model=`` given to the session scores those plans. Not in this slice
+(see ROADMAP.md): the adaptive/telemetry branches of
+``serve_partitioned``/``observe_partitioned`` (they need the telemetry
+slice's per-block arms), loading ``.calibration.json`` and ``calibrate``,
+and the SpMSpV path (``compile_spmspv``).
 """
 
 from __future__ import annotations
@@ -109,6 +114,46 @@ def _run_mode_key(current_format: str, schedule: KernelSchedule) -> str:
     return f"run:{current_format}:{tag}"
 
 
+def _part_mode_key(max_blocks: int) -> str:
+    """Partitioned plans are keyed by their block-count budget: sessions
+    running with different ``--max-blocks`` must not alias entries."""
+    return f"part:max{max_blocks}"
+
+
+def _needs_telemetry_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} with a telemetry recorder or adaptive selector needs "
+        "telemetry.adaptive.block_arm_bucket, which belongs to the telemetry "
+        "slice of the port (see ROADMAP.md)"
+    )
+
+
+@dataclass(frozen=True)
+class PartitionedResult:
+    """What ``partitioned_optimize`` returns: the composite plan actually
+    applied to this matrix, its executor, and enough identity for
+    ``observe_partitioned`` to feed every (block, format) arm."""
+
+    fingerprint: str
+    features: SparsityFeatures
+    bucket: str
+    objective: str
+    plan: object  # repro_torch.partition.plan.CompositePlan
+    kernel: object  # PartitionedSpmv or FusedPartitionedSpmv
+    mode: str  # the cache mode key ("part:max<k>")
+    cache_hit: bool = False
+    served_formats: tuple[str, ...] = ()  # per block, after bandit swaps
+    exploratory: tuple[bool, ...] = ()  # per block: served off the plan
+
+    @property
+    def n_blocks(self) -> int:
+        return self.plan.n_blocks
+
+    @property
+    def formats(self) -> tuple[str, ...]:
+        return self.served_formats or self.plan.formats
+
+
 @dataclass(frozen=True)
 class ServedPlan:
     """What ``serve_optimize`` hands the serving layer: the plan actually
@@ -151,6 +196,10 @@ class AutoSpmvSession:
         Optional adaptive format selector (duck-typed);
         ``serve_optimize`` consults it and ``observe`` updates it, including
         drift-triggered cache invalidation.
+    cost_model:
+        Optional ``CostModel`` (e.g. on another ``HardwareProfile``) that
+        ``partitioned_optimize`` scores plans with; ``None`` is the
+        default ``CostModel()`` on ``H100_SXM``.
     """
 
     def __init__(
@@ -161,6 +210,7 @@ class AutoSpmvSession:
         *,
         telemetry=None,
         adaptive=None,
+        cost_model=None,
     ):
         if cache is None:
             if cache_path is not None and Path(cache_path).exists():
@@ -180,6 +230,7 @@ class AutoSpmvSession:
         self.cache_path = Path(cache_path) if cache_path is not None else None
         self.telemetry = telemetry
         self.adaptive = adaptive
+        self.cost_model = cost_model
         self.stats = SessionStats()
         # fingerprint -> (features, bucket): dedups the f term. LRU-bounded
         # like the kernel memo — a server streaming distinct matrices must
@@ -405,6 +456,165 @@ class AutoSpmvSession:
             objective,
         )
         return [unique[fp] for fp in fps]
+
+    # ------------------------------------------------------------ partitioned
+    def _replay_partitioned(self, dense: np.ndarray, entry: CacheEntry):
+        """Rebuild a ``CompositePlan`` for THIS matrix from a cached entry.
+
+        The cached decisions are bucket-level (per-block format + schedule,
+        in row order); the row boundaries are re-derived from this matrix's
+        own nnz histogram, so a bucket-mate with a shifted hub row still gets
+        balanced blocks. Returns None when the stored block count cannot be
+        realized (fewer rows than blocks) — the caller re-plans."""
+        from repro_torch.core.objectives import ObjectiveValues
+        from repro_torch.partition.partitioner import partition_rows
+        from repro_torch.partition.plan import BlockPlan, CompositePlan
+
+        part = partition_rows(dense, entry.n_blocks)
+        if part.n_blocks != entry.n_blocks or len(entry.blocks) != entry.n_blocks:
+            return None
+        plans = tuple(
+            BlockPlan(
+                block=blk,
+                fmt=raw["fmt"],
+                schedule=KernelSchedule(**raw["schedule"]),
+                # replayed plans carry the stored latency estimate only;
+                # full ObjectiveValues live with the entry that planned them
+                modeled=ObjectiveValues(raw.get("latency", 0.0), 0.0, 0.0, 0.0),
+                predicted_fmt=raw.get("predicted_fmt", raw["fmt"]),
+            )
+            for blk, raw in zip(part.blocks, entry.blocks)
+        )
+        modeled = ObjectiveValues(entry.predicted.get("latency", 0.0), 0.0, 0.0, 0.0)
+        monolithic = ObjectiveValues(
+            entry.predicted.get("monolithic_latency", 0.0), 0.0, 0.0, 0.0
+        )
+        return CompositePlan(
+            entry.objective, part, plans, modeled, monolithic,
+            entry.monolithic_fmt or default_format(),
+        )
+
+    def partitioned_optimize(
+        self,
+        dense: np.ndarray,
+        objective: str = "latency",
+        *,
+        max_blocks: int = 8,
+        fused: bool = False,
+        fingerprint: str | None = None,
+    ) -> PartitionedResult:
+        """Partitioned run-time mode through the plan cache.
+
+        On a miss the tuner searches block counts {1, ..., max_blocks} and
+        the winning composite plan (or the monolithic fallback) is cached
+        per feature bucket; on a hit the stored per-block decisions replay
+        onto this matrix's own nnz-balanced boundaries. Kernels compile
+        through the process-wide memo, keyed per (matrix, row range).
+
+        Planning uses the session's ``cost_model`` when one is set. With
+        ``fused=True`` the composite lowers to ONE launch
+        (``compile_fused_partitioned``, one memo entry keyed on the whole
+        plan) instead of per-block kernels — the fast serving path;
+        per-block timing needs ``fused=False``."""
+        from repro_torch.partition.executor import (
+            compile_fused_partitioned,
+            compile_partitioned,
+        )
+        from repro_torch.partition.partitioner import SUPPORTED_BLOCK_COUNTS
+
+        self.stats.requests += 1
+        with _span(
+            "session.optimize", mode="partitioned", objective=objective, fused=fused
+        ) as sp:
+            fp, feats, bucket = self._analyze(dense, fingerprint)
+            mode = _part_mode_key(max_blocks)
+            with _span("cache.lookup", bucket=bucket, mode=mode):
+                entry = self.cache.get(bucket, objective, mode)
+            plan = self._replay_partitioned(dense, entry) if entry is not None else None
+            cache_hit = plan is not None
+            sp.set(bucket=bucket, cache_hit=cache_hit)
+            if plan is None:
+                block_counts = tuple(
+                    k for k in SUPPORTED_BLOCK_COUNTS if k <= max_blocks
+                ) or (1,)
+                with _span("plan.compute", bucket=bucket, mode=mode):
+                    plan = self.tuner.plan_partitioned(
+                        dense, objective, block_counts=block_counts,
+                        cost_model=self.cost_model,
+                    )
+                self.stats.plans_computed += 1
+                self.stats.cache_misses += 1
+                self.cache.put(
+                    CacheEntry(
+                        bucket=bucket,
+                        objective=objective,
+                        mode=mode,
+                        fmt="+".join(plan.formats),
+                        schedule=plan.blocks[0].schedule.as_dict(),
+                        predicted={
+                            "latency": plan.modeled.latency,
+                            "monolithic_latency": plan.monolithic.latency,
+                        },
+                        n_blocks=plan.n_blocks,
+                        blocks=[bp.as_dict() for bp in plan.blocks],
+                        monolithic_fmt=plan.monolithic_fmt,
+                    )
+                )
+                log.info(
+                    "partitioned miss: bucket=%s -> k=%d formats=%s (gain %.1f%%)",
+                    bucket,
+                    plan.n_blocks,
+                    "+".join(plan.formats),
+                    100.0 * plan.gain(),
+                )
+            else:
+                self.stats.cache_hits += 1
+            before = kernel_memo_stats()["compiles"]
+            compile_fn = compile_fused_partitioned if fused else compile_partitioned
+            kernel = compile_fn(dense, plan, device=self.tuner.device, memo_key=fp)
+            self.stats.kernel_compiles += kernel_memo_stats()["compiles"] - before
+        return PartitionedResult(
+            fingerprint=fp,
+            features=feats,
+            bucket=bucket,
+            objective=objective,
+            plan=plan,
+            kernel=kernel,
+            mode=mode,
+            cache_hit=cache_hit,
+        )
+
+    def serve_partitioned(
+        self,
+        dense: np.ndarray,
+        objective: str = "latency",
+        *,
+        max_blocks: int = 8,
+        fingerprint: str | None = None,
+    ) -> PartitionedResult:
+        """Partitioned serving. Without an adaptive selector this is exactly
+        ``partitioned_optimize``; with one, each block would consult its own
+        bandit cell, which needs the telemetry slice (raises until then)."""
+        if self.adaptive is not None:
+            raise _needs_telemetry_slice("serve_partitioned")
+        return self.partitioned_optimize(
+            dense, objective, max_blocks=max_blocks, fingerprint=fingerprint
+        )
+
+    def observe_partitioned(
+        self, result: PartitionedResult, block_times_s: list[float]
+    ) -> None:
+        """Feed per-block measured wall times back. Counted always; with a
+        telemetry recorder or adaptive selector attached every (block,
+        format) pair would be its own arm, which needs the telemetry slice
+        (raises until then)."""
+        if len(block_times_s) != result.n_blocks:
+            raise ValueError(
+                f"{len(block_times_s)} block times for {result.n_blocks} blocks"
+            )
+        if self.telemetry is not None or self.adaptive is not None:
+            raise _needs_telemetry_slice("observe_partitioned")
+        self.stats.observations += 1
 
     # ----------------------------------------------------- telemetry serving
     def _incumbent_format(

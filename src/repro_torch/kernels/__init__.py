@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for the paper's compute hot-spot: the SpMV
-kernel itself (CSR / ELL / BELL / SELL), schedule-parameterized by the
-Auto-SpMV compile-time mode. ``ops.py`` is the public wrapper; each kernel
-module holds its launch wrapper beside a plain PyTorch version; ``ref.py``
-holds the plain-torch oracles; ``build.py`` compiles ``../csrc`` at first use."""
+kernel itself (CSR / ELL / BELL / SELL, the BCSR plugin's ``bcsr.py``),
+schedule-parameterized by the Auto-SpMV compile-time mode, and the fused
+single-launch partitioned kernel (``fused.py``). ``ops.py`` is the public
+wrapper; each kernel module holds its launch wrapper beside a plain PyTorch
+version; ``ref.py`` holds the plain-torch oracles; ``build.py`` compiles
+``../csrc`` at first use."""
 
 from repro_torch.kernels.common import (
     DEFAULT_SCHEDULE,
@@ -12,6 +14,8 @@ from repro_torch.kernels.common import (
     UNROLL_CHOICES,
     ACCUM_DTYPE_CHOICES,
     X_RESIDENCY_CHOICES,
+    MAX_FUSED_STEPS,
+    fused_nnz_tile,
     resolve_device,
 )
 from repro_torch.kernels.ops import (
@@ -20,7 +24,9 @@ from repro_torch.kernels.ops import (
     clear_kernel_memo,
     compile_spmv,
     compile_spmv_block,
+    compile_spmv_fused,
     evict_kernel_memo_format,
+    fused_plan_signature,
     kernel_memo_limit,
     kernel_memo_size,
     kernel_memo_stats,
@@ -39,12 +45,16 @@ __all__ = [
     "UNROLL_CHOICES",
     "ACCUM_DTYPE_CHOICES",
     "X_RESIDENCY_CHOICES",
+    "MAX_FUSED_STEPS",
+    "fused_nnz_tile",
     "InfeasibleConfig",
     "PreparedSpmv",
     "clear_kernel_memo",
     "compile_spmv",
     "compile_spmv_block",
+    "compile_spmv_fused",
     "evict_kernel_memo_format",
+    "fused_plan_signature",
     "kernel_memo_limit",
     "kernel_memo_size",
     "kernel_memo_stats",

@@ -19,13 +19,16 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-KERNEL_SOURCES = ("spmv_csr", "spmv_ell", "spmv_sell", "spmv_bell")
+KERNEL_SOURCES = (
+    "spmv_csr", "spmv_ell", "spmv_sell", "spmv_bell", "spmv_fused", "spmv_bcsr",
+)
 _SHARED_HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode",
@@ -35,6 +38,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills per kernel, in the build log
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -96,6 +100,25 @@ def _finish_build(name: str, proc, tmp: Path, out: Path) -> str:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees a whole file or none
     return log
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Per compiled kernel (in build-log order): its mangled name, registers
+    per thread and spill bytes, from the ``-Xptxas=-v`` lines of a build log."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = {"function": m.group(1), "registers": None, "spill_bytes": 0}
+            out.append(entry)
+        elif entry is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    return out
 
 
 def build_all(names: tuple[str, ...] = KERNEL_SOURCES) -> dict:

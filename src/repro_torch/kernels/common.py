@@ -107,6 +107,34 @@ class KernelSchedule:
 
 DEFAULT_SCHEDULE = KernelSchedule()
 
+# Fused partitioned executor (kernels/fused.py): the most CTAs the tile rule
+# cuts the single-launch composite stream into — 4 resident CTAs on each of
+# the H100's 132 SMs, one wave. CTAs run in parallel here, so unlike a
+# sequential grid the launch wants MANY tiles; the cap only keeps a huge
+# stream from turning into thousands of tiny CTAs.
+H100_SMS = 132
+MAX_FUSED_STEPS = 4 * H100_SMS
+# the least work a fused CTA gets (8 elements per thread of a 256-thread CTA):
+# below it, CTA start-up and the tail atomics cost more than the work
+MIN_FUSED_TILE = 2048
+
+
+def fused_nnz_tile(total_elems: int, *, max_steps: int = MAX_FUSED_STEPS) -> int:
+    """Lane-aligned flat tile for the fused composite nonzero stream.
+
+    Rule for the card: one tile is one CTA's work. The tile is the stream
+    cut into ``max_steps`` pieces (4 CTAs per SM over 132 SMs, so every SM
+    has CTAs to switch between while gathers of x are in flight), but never
+    below ``MIN_FUSED_TILE`` elements, and rounded up to a multiple of
+    ``LANE``. A stream shorter than ``max_steps * MIN_FUSED_TILE`` therefore
+    gets fewer, fuller CTAs; a longer one gets at most ``max_steps`` (plus
+    one partial tile per block, since each block pads to the tile). No
+    memory cap: a CTA streams its tile from device memory and holds none of
+    it, so its size is bounded by nothing on the SM.
+    """
+    tile = max(-(-int(total_elems) // max_steps), MIN_FUSED_TILE)
+    return ceil_to(tile, LANE)
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``None`` means ``"cuda"``.

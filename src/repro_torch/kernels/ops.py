@@ -99,6 +99,9 @@ def matrix_fingerprint(dense: np.ndarray) -> str:
 # one-off callers don't pin large format storage. Bounded: each entry holds
 # the full converted matrix storage on its device, so an unbounded memo on a
 # serving path streaming distinct matrices would grow memory until OOM.
+# Fused composite kernels share the memo with a "fused:<fmt>+<fmt>..."
+# format tag and the composite-plan signature in the schedule slot (one
+# entry per plan).
 _KERNEL_MEMO: "OrderedDict[tuple, object]" = OrderedDict()
 _MEMO_STATS = {"hits": 0, "compiles": 0, "evictions": 0}
 _MEMO_LIMIT = 256
@@ -122,6 +125,25 @@ def _evict_over_limit() -> None:
         _KERNEL_MEMO.popitem(last=False)
         _MEMO_STATS["evictions"] += 1
         _M_EVICTIONS.inc()
+
+
+def _memo_get(key):
+    """A memo hit (counted, moved to the LRU end) or None."""
+    hit = _KERNEL_MEMO.get(key)
+    if hit is not None:
+        _MEMO_STATS["hits"] += 1
+        _M_HITS.inc()
+        _KERNEL_MEMO.move_to_end(key)
+    return hit
+
+
+def _memo_put(key, kernel) -> None:
+    # counters cover memoized traffic only, so hits/(hits+compiles) is a
+    # true memo hit rate (plain one-off compiles don't skew it)
+    _MEMO_STATS["compiles"] += 1
+    _M_COMPILES.inc()
+    _KERNEL_MEMO[key] = kernel
+    _evict_over_limit()
 
 
 def set_kernel_memo_limit(limit: int) -> None:
@@ -151,14 +173,27 @@ def clear_kernel_memo() -> None:
     _KERNEL_MEMO.clear()
 
 
+def _fused_tag_contains(tag, fmt: str) -> bool:
+    """Whether a fused memo tag ("fused:ell+csr+...") involves ``fmt``."""
+    return (
+        isinstance(tag, str)
+        and tag.startswith(_FUSED_TAG_PREFIX)
+        and fmt in tag[len(_FUSED_TAG_PREFIX) :].split("+")
+    )
+
+
 def evict_kernel_memo_format(fmt: str) -> int:
     """Drop every memoized kernel of one format.
 
     Called by the registry when a format is unregistered or re-registered:
     a memoized ``PreparedSpmv`` must not outlive the ``FormatSpec`` that
     built it (its container would no longer resolve in ``spec_for``, or
-    would silently run the old implementation)."""
-    stale = [k for k in _KERNEL_MEMO if k[1] == fmt]
+    would silently run the old implementation). Fused composite kernels are
+    evicted when ANY of their block formats matches — their flattened
+    streams were lowered through the retiring ``FormatSpec``."""
+    stale = [
+        k for k in _KERNEL_MEMO if k[1] == fmt or _fused_tag_contains(k[1], fmt)
+    ]
     for k in stale:
         del _KERNEL_MEMO[k]
         _MEMO_STATS["evictions"] += 1
@@ -184,23 +219,14 @@ def compile_spmv(
     eviction). The device is part of the key, so CPU and CUDA kernels never
     alias."""
     device = resolve_device(device)
-    if memo_key is not None:
-        key = (memo_key, fmt, schedule, device)
-        hit = _KERNEL_MEMO.get(key)
-        if hit is not None:
-            _MEMO_STATS["hits"] += 1
-            _M_HITS.inc()
-            _KERNEL_MEMO.move_to_end(key)
-            return hit
+    key = (memo_key, fmt, schedule, device) if memo_key is not None else None
+    hit = _memo_get(key) if key is not None else None
+    if hit is not None:
+        return hit
     with _span("kernel.compile", fmt=fmt):
         prepared = PreparedSpmv(prepare(dense, fmt, schedule, device=device), schedule, device)
-    if memo_key is not None:
-        # counters cover memoized traffic only, so hits/(hits+compiles) is a
-        # true memo hit rate (plain one-off compiles don't skew it)
-        _MEMO_STATS["compiles"] += 1
-        _M_COMPILES.inc()
-        _KERNEL_MEMO[key] = prepared
-        _evict_over_limit()
+    if key is not None:
+        _memo_put(key, prepared)
     return prepared
 
 
@@ -225,3 +251,48 @@ def compile_spmv_block(
     block = np.asarray(dense)[row_start:row_end]
     key = (memo_key, row_start, row_end) if memo_key is not None else None
     return compile_spmv(block, fmt, schedule, device=device, memo_key=key)
+
+
+_FUSED_TAG_PREFIX = "fused:"
+
+
+def fused_plan_signature(plan) -> tuple:
+    """Hashable identity of a ``CompositePlan``'s executable content.
+
+    Two plans lower to the same fused stream iff their (row range, format,
+    schedule) tuples agree per block — the memo key component that makes
+    "one kernel memo entry keyed on the composite plan" precise."""
+    return tuple(
+        (bp.block.row_start, bp.block.row_end, bp.fmt, bp.schedule)
+        for bp in plan.blocks
+    )
+
+
+def compile_spmv_fused(
+    dense: np.ndarray,
+    plan,
+    *,
+    device: str | torch.device | None = None,
+    memo_key: Hashable | None = None,
+):
+    """Lower a ``CompositePlan`` to its single-launch fused kernel.
+
+    The whole composite memoizes as ONE entry: the format slot carries a
+    ``fused:<fmt>+<fmt>...`` tag (so ``evict_kernel_memo_format`` retires it
+    with any constituent format), the schedule slot the plan signature, the
+    last slot the device. Returns a ``repro_torch.kernels.fused.FusedSpmv``."""
+    from repro_torch.kernels.fused import lower_fused
+
+    device = resolve_device(device)
+    formats = "+".join(bp.fmt for bp in plan.blocks)
+    key = None
+    if memo_key is not None:
+        key = (memo_key, _FUSED_TAG_PREFIX + formats, fused_plan_signature(plan), device)
+        hit = _memo_get(key)
+        if hit is not None:
+            return hit
+    with _span("kernel.compile", fused=True, formats=formats):
+        kernel = lower_fused(dense, plan, device=device)
+    if key is not None:
+        _memo_put(key, kernel)
+    return kernel

@@ -1,5 +1,6 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --spmv
-[--spmv-cache tuning.json] [--device cuda|cpu]``.
+[--spmv-cache tuning.json] [--device cuda|cpu] [--partition [--max-blocks K]
+[--fused]] [--format-plugins repro_torch.sparse.bcsr]``.
 
 Runs the multi-matrix Auto-SpMV pipeline: synthetic traffic drawn from the
 paper's matrix suite (with repeats, as real solver fleets resubmit the same
@@ -7,10 +8,12 @@ systems) flows through an ``AutoSpmvSession``-backed ``SpmvServer`` whose
 kernels run on ``--device`` (default ``cuda``; the launcher raises when the
 card is absent rather than serving from the CPU). With ``--spmv-cache`` the
 tuning decisions persist to JSON, so a relaunched server starts warm and
-skips the predictor inferences.
+skips the predictor inferences. ``--partition`` serves per-matrix
+composite plans over nnz-balanced row blocks (``--fused``: one launch per
+request); ``--format-plugins`` imports modules that register extra formats.
 
-The reference launcher's LM mode and its telemetry, partition, SLO, anomaly
-and fleet flags belong to later slices of the port.
+The reference launcher's LM mode and its telemetry, SLO, anomaly and fleet
+flags belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 from repro_torch.core.session import AutoSpmvSession, build_tuner
 from repro_torch.kernels.common import resolve_device
 from repro_torch.sparse.generate import MATRIX_NAMES, generate_by_name
-from repro_torch.sparse.registry import default_format
+from repro_torch.sparse.registry import default_format, format_names
 from repro_torch.train.serve import SpmvRequest, SpmvServer
 from repro_torch.utils.logging import get_logger
 
@@ -31,6 +34,15 @@ log = get_logger("launch.serve")
 
 
 def serve_spmv(args) -> list[SpmvRequest]:
+    if args.format_plugins:
+        # plugin modules register extra sparse formats on import; they then
+        # flow through the tuning space and serving untouched
+        import importlib
+
+        for mod in args.format_plugins.split(","):
+            importlib.import_module(mod.strip())
+        log.info("format registry after plugins: %s", format_names())
+
     device = resolve_device(args.device)
     t0 = time.time()
     tuner = build_tuner(
@@ -43,7 +55,16 @@ def serve_spmv(args) -> list[SpmvRequest]:
     session = AutoSpmvSession(tuner, cache_path=args.spmv_cache)
     if len(session.cache):
         log.info("warm start: %d cached plans from %s", len(session.cache), args.spmv_cache)
-    server = SpmvServer(session)
+    server = SpmvServer(
+        session, partition=args.partition, max_blocks=args.max_blocks, fused=args.fused
+    )
+    if args.partition:
+        log.info(
+            "partitioned serving: composite plans up to %d nnz-balanced row "
+            "blocks per matrix (monolithic fallback when partitioning loses)%s",
+            args.max_blocks,
+            ", fused single-launch executor" if args.fused else "",
+        )
 
     # synthetic traffic: suite matrices with repeats (fleet-like resubmission)
     rng = np.random.default_rng(args.seed)
@@ -106,6 +127,20 @@ def main(argv=None):
                     help="JSON path for the persistent tuning cache")
     ap.add_argument("--spmv-scale", type=float, default=0.0015)
     ap.add_argument("--spmv-train-matrices", type=int, default=8)
+    ap.add_argument("--format-plugins", default=None,
+                    help="comma-separated modules registering extra sparse "
+                         "formats (e.g. repro_torch.sparse.bcsr)")
+    ap.add_argument("--partition", action="store_true",
+                    help="partitioned SpMV serving: per-matrix composite "
+                         "plans over nnz-balanced row blocks, each block "
+                         "with its own format/schedule")
+    ap.add_argument("--max-blocks", type=int, default=8,
+                    help="block-count budget for --partition (searched over "
+                         "{1, 2, 4, 8} up to this bound; 1 = monolithic)")
+    ap.add_argument("--fused", action="store_true",
+                    help="with --partition: run the composite plan as ONE "
+                         "launch of the fused kernel instead of per-block "
+                         "kernels")
     ap.add_argument("--objective", default="latency",
                     choices=["latency", "energy", "power", "efficiency"])
     ap.add_argument("--metrics-export", default=None,

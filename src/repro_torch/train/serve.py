@@ -12,14 +12,18 @@ With telemetry attached to the session (duck-typed recorder / adaptive
 selector) the server times every kernel execution and feeds it back via
 ``session.observe``.
 
+With ``partition=True`` every request gets a per-matrix composite plan
+over nnz-balanced row blocks (``session.partitioned_optimize``), run block
+by block or, with ``fused=True``, as one launch of the fused kernel.
+
 Kernels run on the session tuner's device; each request's ``y`` comes back
 to the host as a numpy array, which also synchronises the launch, so the
 measured execution time covers the kernel and the copy.
 
-Not in this slice: partitioned / fused serving, SLO tracking, the anomaly
-watchdog, fleet sync, periodic calibration and the metrics HTTP endpoint —
-asking for one raises ``NotImplementedError``. The LM ``BatchedServer`` is a
-later slice.
+Not in this slice: partitioned serving on the observed (telemetry/adaptive)
+path, SLO tracking, the anomaly watchdog, fleet sync, periodic calibration
+and the metrics HTTP endpoint — asking for one raises
+``NotImplementedError``. The LM ``BatchedServer`` is a later slice.
 """
 
 from __future__ import annotations
@@ -90,8 +94,6 @@ class SpmvServer:
         fleet=None,
     ):
         later = {
-            "partition": partition,
-            "fused": fused,
             "calibrate_every": calibrate_every,
             "slo": slo is not None,
             "anomaly": anomaly,
@@ -103,7 +105,6 @@ class SpmvServer:
                 f"SpmvServer({', '.join(asked)}=...) belongs to a later slice of "
                 "the port (see ROADMAP.md); the reference package serves it"
             )
-        del max_blocks  # accepted for signature parity; only partition reads it
         self.session = session
         # default: take the observed path whenever the session can consume
         # measurements (telemetry recorder and/or bandit attached)
@@ -112,7 +113,16 @@ class SpmvServer:
             if adaptive is not None
             else (session.telemetry is not None or session.adaptive is not None)
         )
+        if partition and self.adaptive:
+            raise NotImplementedError(
+                "partitioned serving on the observed (telemetry/adaptive) path "
+                "needs per-block arms from the telemetry slice of the port"
+            )
         self.feedback = feedback
+        self.partition = partition
+        self.max_blocks = max_blocks
+        # single-launch composite executor on the partitioned path
+        self.fused = fused
         self.batches_served = 0
         self.requests_served = 0
         # observability: request counters + latency histograms live in the
@@ -171,10 +181,35 @@ class SpmvServer:
                 req.latency_s = dt
                 self.session.observe(plan, dt)
                 self._account(objective, plan.fmt, dt, plan.predicted)
+        self._maybe_refit()
+
+    def _maybe_refit(self) -> None:
         if self.feedback is not None:
             refit = self.feedback.maybe_refit(self.session.tuner.predictor)
             if refit:
                 log.info("telemetry refit after batch: %s", refit)
+
+    def _run_partitioned(self, objective: str, group: list[SpmvRequest]) -> None:
+        """Per-request partitioned serve: the composite kernel runs as one
+        call (no per-block synchronise is paid for measurements nothing
+        would consume); its time covers the kernel(s) and the copy of ``y``."""
+        for req in group:
+            with _span(
+                "server.request", rid=req.rid, objective=objective, mode="partitioned"
+            ):
+                res = self.session.partitioned_optimize(
+                    req.dense, objective, max_blocks=self.max_blocks, fused=self.fused
+                )
+                t0 = time.perf_counter()
+                y = _to_host(res.kernel(req.x))
+                dt = time.perf_counter() - t0
+                req.y = y
+                req.schedule = res.plan.blocks[0].schedule
+                req.fmt = "+".join(res.formats)
+                req.cache_hit = res.cache_hit
+                req.latency_s = dt
+                self._account(objective, req.fmt, dt, res.plan.modeled.as_dict())
+        self._maybe_refit()
 
     def run(self, requests: list[SpmvRequest]) -> list[SpmvRequest]:
         by_objective: dict[str, list[SpmvRequest]] = {}
@@ -182,6 +217,9 @@ class SpmvServer:
             r.served_objective = self._resolve_objective(r)
             by_objective.setdefault(r.served_objective, []).append(r)
         for objective, group in by_objective.items():
+            if self.partition:
+                self._run_partitioned(objective, group)
+                continue
             if self.adaptive:
                 self._run_observed(objective, group)
                 continue

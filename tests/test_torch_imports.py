@@ -63,7 +63,11 @@ def test_no_source_file_imports_jax_or_the_reference_package(path):
 def test_cuda_sources_call_no_library_kernel():
     sources = sorted((PKG / "csrc").glob("*.cu*"))
     assert {s.name for s in sources} == {
-        "common.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu", "spmv_bell.cu"}
+        "common.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu", "spmv_bell.cu",
+        "spmv_fused.cu", "spmv_bcsr.cu"}
+    from repro_torch.kernels.build import KERNEL_SOURCES
+
+    assert {f"{n}.cu" for n in KERNEL_SOURCES} == {s.name for s in sources if s.suffix == ".cu"}
     for s in sources:
         text = s.read_text().lower()
         for banned in ("cusparse", "cublas", "torch/extension", "cutlass", "thrust"):

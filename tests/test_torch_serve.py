@@ -249,11 +249,12 @@ def test_invalidate_and_evict_format(tuners, clean):
     assert sess.stats.invalidations == 1
     sess.compile_time_optimize(dense, "latency")
     assert sess.invalidate(key[0]) == 1 and sess.invalidate(key[0]) == 0
-    for later in ("partitioned_optimize", "serve_partitioned", "compile_spmspv", "calibrate"):
+    for later in ("compile_spmspv", "calibrate"):
         assert not hasattr(sess, later)  # later slices; no silent stand-ins
 
 
-@pytest.mark.parametrize("kw", [dict(partition=True), dict(fused=True), dict(anomaly=True),
+@pytest.mark.parametrize("kw", [dict(partition=True, adaptive=True),
+                                dict(partition=True, fused=True, adaptive=True), dict(anomaly=True),
                                 dict(slo=object()), dict(fleet=object()),
                                 dict(calibrate_every=4)])
 def test_later_slices_raise_not_implemented(tuners, kw):

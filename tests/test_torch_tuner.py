@@ -287,4 +287,10 @@ def test_plans_equal_through_autospmv(predictors):
             assert ra.best_format == rb.best_format
             assert dataclasses.astuple(ra)[1:] == pytest.approx(
                 dataclasses.astuple(rb)[1:], rel=1e-9, abs=1e-18)
-    assert not hasattr(a, "plan_partitioned")  # waits for the partition slice
+    # the partitioned run-time mode agrees too, scored on the reference's constants
+    dense = _held_out()[0]
+    pa = a.plan_partitioned(dense, "latency", cost_model=obj.CostModel(REFERENCE_PROFILE))
+    pb = b.plan_partitioned(dense, "latency")
+    assert (pa.n_blocks, pa.formats, pa.monolithic_fmt) == (pb.n_blocks, pb.formats, pb.monolithic_fmt)
+    assert [bp.schedule.as_dict() for bp in pa.blocks] == [bp.schedule.as_dict() for bp in pb.blocks]
+    assert pa.modeled.latency == pytest.approx(pb.modeled.latency, rel=1e-9)
