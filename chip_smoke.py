@@ -11,7 +11,7 @@ It imports ``repro_torch`` only (never JAX, never the JAX package) and needs
 no network. Phases, each printing one JSON object on a line of its own:
 
 1. ``env``      torch / CUDA / nvcc versions, card name and power limit.
-2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (six sources) for
+2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (seven sources) for
                 sm_90a (one ``nvcc`` per source, in parallel) and reports the
                 seconds and each kernel's registers and spills (ptxas).
 3. ``check``    every hand-written kernel against its plain PyTorch version
@@ -21,7 +21,11 @@ no network. Phases, each printing one JSON object on a line of its own:
                 and, where one PyTorch call computes the same function, that
                 call. The fused kernel runs on the stream ``lower_fused``
                 makes from a forced four-block plan of ``hetero``, the BCSR
-                kernel on ``pkustk04`` at n = 8,000.
+                kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel on the
+                ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
+                (its largest column, 1 %, 10 % and 50 % of the columns, all
+                of them), each beside the library's CSR product and the CSR
+                kernel on the same matrix and x.
 4. ``serve``    ``SpmvServer.run`` (tuner from ``build_tuner()``) on 16 requests with
                 repeats over six full-width matrices (``human_gene2`` at its
                 published 14,340 x 14,340 with ~9.0 M nonzeros, five more
@@ -47,8 +51,20 @@ no network. Phases, each printing one JSON object on a line of its own:
                 refusal at n ~ 14,000), and a forced plan with a BCSR block
                 through both executors (the fused lowering's ``to_dense``
                 route); unregisters BCSR at the end.
+8. ``solve``    the iterative solvers on a fresh session: PageRank on
+                ``webgraph`` (n = 14,011) with the uniform teleport, held
+                against a float64 oracle of the same recurrence; personalised
+                PageRank and power iteration (30 iterations from one seed
+                vertex) under ``AdaptiveSpmvPolicy``, whose sparse frontiers
+                run the SpMSpV kernel and flip one way to SpMV; CG on the SPD
+                operator of ``rim`` (n ~ 14,000) to a relative residual of
+                1e-6, checked in float64; and ``repro_torch.launch.solve``'s
+                ``main`` in-process (power, ``--adaptive-spmspv``). SpMSpV
+                launches must equal the solves' SpMSpV matvecs, CSR launches
+                their SpMV matvecs. Then a host-clock breakdown of one
+                iteration (copies, kernel, numpy step).
 
-Launch counters are set to 0 just before phases 4-7 and read just after each:
+Launch counters are set to 0 just before phases 4-8 and read just after each:
 a kernel of the path that was launched no time fails the run. Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts), the
 ``nvidia-smi`` name/power-limit line and, last, the result line
@@ -67,10 +83,11 @@ from __future__ import annotations
 
 import json
 import os
-import warnings
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -105,6 +122,14 @@ from repro_torch.kernels.ops import (  # noqa: E402
     prepare,
 )
 from repro_torch.kernels.sell import sell_spmv, sell_spmv_plain  # noqa: E402
+from repro_torch.kernels.spmspv import (  # noqa: E402
+    col_nnz,
+    csc_from_dense,
+    csc_spmspv,
+    csc_spmspv_kernel,
+    csc_spmspv_plain,
+)
+from repro_torch.launch import solve as launch_solve  # noqa: E402
 from repro_torch.partition import (  # noqa: E402
     BlockPlan,
     CompositePlan,
@@ -112,6 +137,7 @@ from repro_torch.partition import (  # noqa: E402
     compile_partitioned,
     partition_rows,
 )
+from repro_torch.solvers import AdaptiveSpmvPolicy, cg, pagerank, power_iteration  # noqa: E402
 from repro_torch.sparse.generate import SUITE, generate_by_name, random_matrix  # noqa: E402
 from repro_torch.sparse.registry import format_names, unregister_format  # noqa: E402
 from repro_torch.train.serve import SpmvRequest, SpmvServer  # noqa: E402
@@ -141,9 +167,12 @@ SCHEDULES = [
 ]
 
 WRAPPERS = {"csr": csr_spmv, "ell": ell_spmv, "sell": sell_spmv, "bell": bell_spmv,
-            "fused": fused_spmv, "bcsr": bcsr_spmv}
+            "fused": fused_spmv, "bcsr": bcsr_spmv, "spmspv": csc_spmspv}
 BLOCK_FORMATS = ("csr", "ell", "sell", "bell", "bcsr")  # one wrapper each
-KERNEL_ORDER = ("csr", "ell", "sell", "bell", "fused", "bcsr")
+KERNEL_ORDER = ("csr", "ell", "sell", "bell", "fused", "bcsr", "spmspv")
+# the CUDA source (csrc/<name>.cu) of each kernel
+SOURCE = {**{k: f"spmv_{k}" for k in KERNEL_ORDER}, "spmspv": "spmspv_csc"}
+KERNEL_NAME = {**{k: f"{k}_spmv" for k in KERNEL_ORDER}, "spmspv": "csc_spmspv"}
 REPLACES = {
     "csr": "src/repro/kernels/csr.py:48",
     "ell": "src/repro/kernels/ell.py:45",
@@ -151,6 +180,7 @@ REPLACES = {
     "bell": "src/repro/kernels/bell.py:40",
     "fused": "src/repro/kernels/fused.py:154",
     "bcsr": "src/repro/sparse/bcsr.py:208",
+    "spmspv": "src/repro/kernels/spmspv.py:145",
 }
 # matrix each kernel is checked and timed on: one the served path gives it
 CHECK_MATRIX = {"csr": "human_gene2", "ell": "rim", "sell": "rim", "bell": BELL_MATRIX,
@@ -167,6 +197,13 @@ MAX_BLOCKS = 8
 # refuses any block above ~4,800 rows at 14,000 columns.
 FORCED_FORMATS = ("ell", "sell", "bell", "csr")
 PLUGIN_FORMATS = ("bcsr", "ell", "bell", "csr")  # a BCSR block: the to_dense route
+
+# solve phase: webgraph at the scale that gives n = 14,011 (its CscEll pads
+# every column to the hub column's 3,322 nonzeros: W = 3,328 at nnz_tile 128)
+WEB_SCALE = 0.016
+SOLVE_TOL = {"pagerank": 1e-7, "cg": 1e-6}
+POWER_ITERS = 30
+CLI_SCALE = WEB_SCALE  # launch.solve builds its own tuner at this scale
 _ZERO = ObjectiveValues(0.0, 0.0, 0.0, 0.0)
 
 
@@ -491,6 +528,375 @@ def time_composites(session, part_pool, fps, x_of) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ spmspv
+def frontiers_of(counts: np.ndarray, rng) -> list[tuple[str, np.ndarray]]:
+    """The check's frontiers (sorted column indices, as a solver's
+    ``flatnonzero`` gives them): the single largest column; 1 %, 10 % (the
+    policy's threshold) and 50 % of the columns drawn at random; all of them."""
+    n_cols = counts.size
+    out = [("largest_column", np.array([int(np.argmax(counts))], np.int32))]
+    for pct in (1, 10, 50):
+        pick = rng.choice(n_cols, size=n_cols * pct // 100, replace=False)
+        out.append((f"{pct}%", np.sort(pick).astype(np.int32)))
+    out.append(("full", np.arange(n_cols, dtype=np.int32)))
+    return out
+
+
+def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
+    """Hold the SpMSpV kernel against its plain version and a float64 host
+    product over the six schedules and five frontiers of ``webgraph``; at
+    ``time_schedule`` (the one the solver's SpMSpV twin runs) time every
+    frontier beside its byte bound, the plain version, the library's CSR
+    product of the same x and the CSR kernel on the same matrix and x."""
+    import scipy.sparse
+
+    rng = np.random.default_rng(SEED + 13)
+    n_rows, n_cols = web.shape
+    counts = col_nnz(web)
+    a64 = scipy.sparse.csr_matrix(web).astype(np.float64)
+    fronts = []
+    for name, active in frontiers_of(counts, rng):
+        xvals = rng.normal(size=active.size).astype(np.float32)
+        x = np.zeros(n_cols, np.float32)
+        x[active] = xvals
+        fronts.append({"name": name, "active": active, "xvals": xvals, "x": x,
+                       "ref64": a64 @ x.astype(np.float64)})
+    csr = prepare(web, "csr", device=DEVICE)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR is beta" notice
+        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape,
+                                      device=DEVICE)
+    schedules = list(SCHEDULES)
+    if time_schedule not in schedules:
+        schedules.append(time_schedule)
+    mats, worst, per_schedule, timed_rows = {}, 0.0, {}, []
+    t_conv = None
+    for sched in schedules:
+        if sched.nnz_tile not in mats:  # the storage depends on nnz_tile only
+            t0 = time.perf_counter()
+            mats[sched.nnz_tile] = csc_from_dense(web, sched, device=DEVICE)
+            torch.cuda.synchronize()
+            if sched.nnz_tile == time_schedule.nnz_tile:
+                t_conv = time.perf_counter() - t0
+        mat = mats[sched.nnz_tile]
+        tol = tol_of(sched)
+        for f in fronts:
+            act = torch.as_tensor(f["active"], device=DEVICE)
+            xv = torch.as_tensor(f["xvals"], device=DEVICE)
+            args = (mat.data, mat.rows, act, xv, n_rows, sched)
+            y_k = csc_spmspv_kernel(*args)
+            torch.cuda.synchronize()  # a fault during the run surfaces here
+            yk = y_k[:n_rows].cpu().numpy()
+            yp = csc_spmspv_plain(*args)[:n_rows].cpu().numpy()
+            err, err_host = scaled_err(yk, yp), scaled_err(yk, f["ref64"])
+            if not (np.isfinite(yk).all() and err <= tol and err_host <= tol):
+                raise AssertionError(
+                    f"spmspv kernel disagrees on webgraph, frontier {f['name']}, {sched}: "
+                    f"vs plain {err:.3e}, vs host float64 {err_host:.3e}, tolerance {tol:.0e}")
+            worst = max(worst, err)
+            if f["name"] == "10%":
+                tag = sched_tag(sched) + ("_par" if sched.dimension_semantics == "parallel" else "")
+                per_schedule[tag] = {
+                    "ms": timed(lambda: csc_spmspv_kernel(*args)), "err_vs_plain": err,
+                    "err_vs_host": err_host}
+            if sched != time_schedule:
+                continue
+            k, touched = int(f["active"].size), int(counts[f["active"]].sum())
+            nbytes = touched * 8 + k * 8 + (n_rows + 1) * 4  # what skipping padding must move
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * touched / FP32_FLOPS
+            x_dev = torch.as_tensor(f["x"], device=DEVICE)
+            y_lib = (lib @ x_dev).cpu().numpy()
+            y_b1 = csr_spmv(csr.data, csr.indices, csr.indptr, x_dev, sched).cpu().numpy()
+            row = {"frontier": f["name"], "k": k, "density": k / n_cols,
+                   "nnz_touched": touched, "padded_slots_of_frontier": k * mat.width,
+                   "ms": timed(lambda: csc_spmspv_kernel(*args)),
+                   "plain_ms": timed(lambda: csc_spmspv_plain(*args), reps=5),
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                   "library_ms": timed(lambda: lib @ x_dev),
+                   "library_err": scaled_err(y_lib, f["ref64"]),
+                   "b1_ms": timed(lambda: csr_spmv(csr.data, csr.indices, csr.indptr, x_dev,
+                                                   sched)),
+                   "b1_err": scaled_err(y_b1, f["ref64"]),
+                   "err_vs_plain": err, "err_vs_host": err_host}
+            if max(row["library_err"], row["b1_err"]) > 1e-4:
+                raise AssertionError(f"library or CSR product wrong on webgraph: {row}")
+            timed_rows.append(row)
+    head = next(r for r in timed_rows if r["frontier"] == "10%")
+    mat = mats[time_schedule.nnz_tile]
+    entry = {
+        "matrix": f"webgraph@{n_rows}",
+        "shape": [n_rows, n_cols],
+        "nnz": int(counts.sum()),
+        "schedule": sched_tag(time_schedule),
+        "frontier": "10%",
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                                "library_ms", "b1_ms")},
+        "library": "torch.sparse_csr_tensor(A) @ x (x dense, the frontier's values)",
+        "cscell": {"width": mat.width, "nbytes": mat.nbytes, "max_col_nnz": int(counts.max()),
+                   "dangling_columns": int((counts == 0).sum()),
+                   "conversion_and_copy_s": t_conv},
+        "frontiers": timed_rows,
+        "max_abs_err": worst,
+        "tolerance": {"float32": 1e-4, "bfloat16": 3e-2},
+        "by_schedule": per_schedule,
+    }
+    del mats, lib, csr
+    return entry
+
+
+# ------------------------------------------------------------------- solve
+def pagerank_oracle(web: np.ndarray, v: np.ndarray, damping: float = 0.85,
+                    tol: float = 1e-13, max_iters: int = 2000) -> np.ndarray:
+    """The solvers' PageRank recurrence in float64 on the host, with
+    ``scipy.sparse`` (the dense float64 operator would take 1.6 GB)."""
+    import scipy.sparse
+
+    a = scipy.sparse.csr_matrix(web).astype(np.float64)
+    sums = np.asarray(a.sum(axis=0)).ravel()
+    p = (a @ scipy.sparse.diags(np.where(sums > 0, 1.0 / np.where(sums > 0, sums, 1.0), 0.0)))
+    p = p.tocsr()
+    dangling = sums == 0
+    v = v.astype(np.float64) / v.sum()
+    r = v.copy()
+    for _ in range(max_iters):
+        r_next = damping * (p @ r + r[dangling].sum() * v) + (1.0 - damping) * v
+        if np.abs(r_next - r).sum() <= tol:
+            return r_next
+        r = r_next
+    return r
+
+
+def solve_row(res, policy=None) -> dict:
+    """What the solve phase prints per solve."""
+    kinds = np.array(res.matvec_kinds)
+    secs = np.array(res.matvec_seconds)
+    p50 = {k: 1e3 * float(np.median(secs[kinds == k])) for k in ("spmv", "spmspv")
+           if (kinds == k).any()}
+    row = {"solver": res.solver, "iterations": res.iterations, "converged": res.converged,
+           "residual": res.residual, "spmv_calls": res.spmv_calls,
+           "spmspv_calls": res.spmspv_calls, "matvec_p50_ms": p50,
+           "iter_p50_ms": 1e3 * res.iter_p50_s(), "modeled_work": res.modeled_work,
+           "spmv_work_equiv": res.spmv_work_equiv,
+           "work_ratio": res.modeled_work / max(res.spmv_work_equiv, 1),
+           "plan_id": res.plan_id, "fmt": res.fmt, "cache_hit": res.cache_hit,
+           "kinds": "".join("S" if k == "spmspv" else "." for k in res.matvec_kinds)}
+    if policy is not None:
+        row["densities"] = [d.density for d in policy.decisions]
+    return row
+
+
+def span_seconds(spans: list[dict]) -> dict:
+    """Seconds by span name, ``kernel.compile`` split by its fmt."""
+    out: dict[str, float] = {}
+    for s in spans:
+        name = s["name"]
+        if name == "kernel.compile":
+            name += ":" + str(s["attrs"].get("fmt", s["attrs"].get("formats", "?")))
+        out[name] = out.get(name, 0.0) + s["dur_s"]
+    return out
+
+
+def one_flip(kinds: list[str]) -> bool:
+    """SpMSpV first, then SpMV for good."""
+    if not kinds or kinds[0] != "spmspv" or "spmv" not in kinds:
+        return False
+    flip = kinds.index("spmv")
+    return all(k == "spmspv" for k in kinds[:flip]) and all(k == "spmv" for k in kinds[flip:])
+
+
+def host_ms(fn, reps: int = 30) -> float:
+    """Median host-clock ms of ``fn`` followed by a device synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(out))
+
+
+def iteration_breakdown(session, web: np.ndarray, power_res, policy) -> dict:
+    """Host-clock split of one power-iteration step on ``webgraph``: the
+    numpy step, the copies and the kernel call (launch + wait), for an SpMV
+    iteration and for an SpMSpV one at the 10 % frontier. Kernels and plans
+    come from the session's memo (hits). Run after the solve phase's
+    launches are read: these launches are timing, not the main path."""
+    from repro_torch.solvers.iterate import IterativeSolver
+
+    solver = IterativeSolver(session, web, name="breakdown", policy=policy)
+    solver.setup()
+    spmv_k, spmspv_k = solver._spmv_kernel, solver._ensure_spmspv()
+    n = web.shape[1]
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.normal(size=n).astype(np.float32)
+    act = np.sort(rng.choice(n, size=n // 10, replace=False)).astype(np.int32)
+    xv = x[act]
+    x_dev = torch.as_tensor(x, device=DEVICE)
+    act_dev, xv_dev = torch.as_tensor(act, device=DEVICE), torch.as_tensor(xv, device=DEVICE)
+    y_dev = spmv_k(x_dev)
+    mat = spmspv_k.mat
+    y = y_dev.cpu().numpy().astype(np.float64)
+    xs = x.astype(np.float64)
+
+    def numpy_step():  # power iteration's host work on one y
+        lam = float(xs @ y)
+        nv = float(np.linalg.norm(y))
+        xn = y / nv
+        xn = np.where(np.abs(xn) >= 1e-7, xn, 0.0)
+        xn = xn / (float(np.linalg.norm(xn)) or 1.0)
+        float(np.linalg.norm(y - lam * xs))
+        np.flatnonzero(xn.astype(np.float32))
+
+    step_s = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        numpy_step()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = 1e3 * float(np.median(step_s))
+    return {
+        "spmv": {"h2d_x_ms": host_ms(lambda: torch.as_tensor(x, device=DEVICE)),
+                 "kernel_call_ms": host_ms(lambda: spmv_k(x_dev)),
+                 "d2h_y_ms": host_ms(lambda: y_dev.cpu()),
+                 "matvec_ms": host_ms(lambda: solver.matvec(x))},
+        "spmspv_10pct": {
+            "h2d_frontier_ms": host_ms(lambda: (torch.from_numpy(act).to(DEVICE),
+                                                torch.from_numpy(xv).to(DEVICE))),
+            "kernel_call_ms": host_ms(lambda: csc_spmspv_kernel(
+                mat.data, mat.rows, act_dev, xv_dev, mat.shape[0], spmspv_k.schedule)),
+            "wrapper_ms": host_ms(lambda: spmspv_k.call_frontier(act, xv)),
+        },
+        "numpy_step_ms": step_ms,
+        "power_matvec_p50_ms": solve_row(power_res)["matvec_p50_ms"],
+        "power_iter_p50_ms": 1e3 * power_res.iter_p50_s(),
+    }
+
+
+def run_solve_phase(tuner, web: np.ndarray, rim: np.ndarray) -> tuple[dict, dict]:
+    """The solvers through the public entry points; returns (payload, launches)."""
+    from repro_torch.obs.trace import get_tracer
+
+    tracer = get_tracer()
+    tracer.clear()
+    session = AutoSpmvSession(tuner)
+    n = web.shape[0]
+    rows, oracle = {}, {}
+    reset_launches()
+
+    def traced(name, fn, policy=None):
+        before = len(tracer.spans())
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        row = solve_row(res, policy)
+        row["wall_s"] = time.perf_counter() - t0
+        row["spans"] = span_seconds(tracer.spans()[before:])
+        row["session"] = session.stats.as_dict()
+        rows[name] = row
+        return res
+
+    uniform = traced("pagerank", lambda: pagerank(
+        session, web, tol=SOLVE_TOL["pagerank"], max_iters=200))
+    r64 = pagerank_oracle(web, np.full(n, 1.0 / n))
+    oracle["pagerank"] = float(np.abs(uniform.value - r64).max())
+    seed = int(np.flatnonzero(col_nnz(web) > 0)[0])
+    pers = np.zeros(n, np.float32)
+    pers[seed] = 1.0
+    pol_pr = AdaptiveSpmvPolicy()
+    personal = traced("pagerank_personalised", lambda: pagerank(
+        session, web, tol=SOLVE_TOL["pagerank"], max_iters=200, policy=pol_pr,
+        personalization=pers), pol_pr)
+    oracle["pagerank_personalised"] = float(
+        np.abs(personal.value - pagerank_oracle(web, pers.astype(np.float64))).max())
+    pol_pw = AdaptiveSpmvPolicy()
+    power = traced("power", lambda: power_iteration(
+        session, web, tol=0.0, max_iters=POWER_ITERS, policy=pol_pw), pol_pw)
+    spd = launch_solve.spd_operator(rim)
+    b = np.random.default_rng(SEED + 5).standard_normal(spd.shape[0]).astype(np.float32)
+    cg_res = traced("cg", lambda: cg(session, spd, b, tol=SOLVE_TOL["cg"], max_iters=200))
+    import scipy.sparse
+
+    s64 = scipy.sparse.csr_matrix(spd).astype(np.float64)
+    cg_rel = float(np.linalg.norm(b - s64 @ cg_res.value) / np.linalg.norm(b))
+    del spd, s64
+
+    # the CLI, in-process, with its own tuner (timed around its build_tuner)
+    tuner_s = []
+    build = launch_solve.build_tuner
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = build(*a, **kw)
+        tuner_s.append(time.perf_counter() - t0)
+        return out
+
+    launch_solve.build_tuner = timed_build
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "solve.json")
+            t0 = time.perf_counter()
+            cli_res = launch_solve.main(["--solver", "power", "--matrix", "webgraph",
+                                      "--scale", str(CLI_SCALE), "--adaptive-spmspv",
+                                      "--max-iters", str(POWER_ITERS), "--tol", "0",
+                                      "--json-out", out])
+            torch.cuda.synchronize()
+            cli_wall = time.perf_counter() - t0
+            with open(out) as fh:
+                cli_json = json.load(fh)
+    finally:
+        launch_solve.build_tuner = build
+    launches = read_launches()
+
+    results = [uniform, personal, power, cg_res, cli_res]
+    want_spmspv = sum(r.spmspv_calls for r in results)
+    want_spmv = sum(r.spmv_calls for r in results)
+    checks = {
+        "pagerank_oracle_max_abs": oracle,
+        "pagerank_rank_sum": [uniform.extras["rank_sum"], personal.extras["rank_sum"]],
+        "power_one_way_flip": one_flip(power.matvec_kinds),
+        "power_spmspv_calls": power.spmspv_calls,
+        "cg_relative_residual_float64": cg_rel,
+        "cli_spmspv_calls": cli_json["spmspv_calls"], "cli_spmv_calls": cli_json["spmv_calls"],
+        "spmspv_launches": launches["spmspv"], "want_spmspv": want_spmspv,
+        "csr_launches": launches["csr"], "want_csr": want_spmv,
+    }
+    payload = {"solves": rows, "checks": checks,
+               "cli": {"wall_s": cli_wall, "tuner_s": tuner_s, "scale": CLI_SCALE,
+                       "n": cli_json["n"], "iterations": cli_json["iterations"],
+                       "spmv_calls": cli_json["spmv_calls"],
+                       "spmspv_calls": cli_json["spmspv_calls"],
+                       "iter_p50_ms": 1e3 * cli_json["iter_p50_s"],
+                       "kinds": solve_row(cli_res)["kinds"], "session": cli_json["session"]},
+               "session": session.stats.as_dict(), "launches": launches}
+    bad = []
+    if max(oracle.values()) > 1e-5:
+        bad.append("pagerank differs from its float64 oracle")
+    if max(abs(s - 1.0) for s in checks["pagerank_rank_sum"]) > 1e-5:
+        bad.append("rank sum off 1")
+    if not (uniform.converged and personal.converged and cg_res.converged):
+        bad.append("a solve did not converge")
+    if personal.spmspv_calls < 1 or not checks["power_one_way_flip"]:
+        bad.append("the adaptive solves did not route SpMSpV then SpMV one way")
+    if not power.modeled_work < power.spmv_work_equiv:
+        bad.append("power iteration touched no less work than SpMV")
+    if cg_rel > 1e-5:
+        bad.append("CG relative residual above 1e-5")
+    if not (cli_json["spmspv_calls"] > 0 and cli_json["spmv_calls"] > 0):
+        bad.append("the CLI did not use both paths")
+    if launches["spmspv"] != want_spmspv or launches["csr"] != want_spmv:
+        bad.append("launches differ from the solves' matvecs")
+    if session.stats.plans_computed > 3 or session.stats.plans_computed < 1:
+        bad.append("more than one plan per unique matrix")  # P of web, web, spd(rim)
+    if any(np.isnan(r.residual) for r in results):
+        bad.append("a NaN residual")
+    if bad:
+        raise AssertionError(f"solve phase: {bad}: {checks}")
+    payload["breakdown"] = iteration_breakdown(session, web, power, AdaptiveSpmvPolicy())
+    return payload, launches
+
+
 def check_launches(phase: str, got: dict, want: dict) -> None:
     bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
     if bad:
@@ -516,7 +922,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     pool = make_pool()
-    extra = {BELL_MATRIX: make_bell_matrix(), "hetero": make_hetero()}
+    extra = {BELL_MATRIX: make_bell_matrix(), "hetero": make_hetero(),
+             "webgraph": generate_by_name("webgraph", scale=WEB_SCALE)}
     fps = {n: matrix_fingerprint(d) for n, d in pool.items()}
     emit("inputs", seconds=time.perf_counter() - t0,
          pool={n: {"shape": list(d.shape), "nnz": int((d != 0).sum())}
@@ -530,6 +937,10 @@ def main() -> None:
     csr_schedule = tuner.plan_compile_time(
         extract_features(pool["human_gene2"]), "latency"
     ).schedule
+    # ... and the one the solvers' iterations run on webgraph (fp32 forced)
+    web_schedule = tuner.plan_compile_time(
+        extract_features(extra["webgraph"]), "latency"
+    ).schedule.replace(accum_dtype="float32")
     t0 = time.perf_counter()
     checked = {}
     # the BCSR storage is checked through its FormatSpec directly; the format
@@ -538,10 +949,13 @@ def main() -> None:
 
     unregister_format("bcsr")
     for fmt in KERNEL_ORDER:
-        name = CHECK_MATRIX[fmt]
-        sched = csr_schedule if fmt == "csr" else DEFAULT_SCHEDULE
-        checked[fmt] = check_kernel(fmt, name, {**pool, **extra}[name], sched)
-        checked[fmt]["registers"] = registers.get(f"spmv_{fmt}")
+        if fmt == "spmspv":
+            checked[fmt] = check_spmspv(extra["webgraph"], web_schedule)
+        else:
+            name = CHECK_MATRIX[fmt]
+            sched = csr_schedule if fmt == "csr" else DEFAULT_SCHEDULE
+            checked[fmt] = check_kernel(fmt, name, {**pool, **extra}[name], sched)
+        checked[fmt]["registers"] = registers.get(SOURCE[fmt])
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
@@ -745,15 +1159,23 @@ def main() -> None:
          decisions=plug_decisions, direct=plug_direct, forced=plug_forced,
          launches=got)
 
+    # ---- solve: the iterative solvers, SpMV <-> SpMSpV (B1 and B6) --------
+    t0 = time.perf_counter()
+    solved, got = run_solve_phase(tuner, extra["webgraph"], pool["rim"])
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("solve", seconds=time.perf_counter() - t0, **solved)
+
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
     kernels = [
         {
-            "name": f"{fmt}_spmv",
+            "name": KERNEL_NAME[fmt],
             "route": "cuda",
-            "source": f"src/repro_torch/csrc/spmv_{fmt}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCE[fmt]}.cu",
             "replaces": REPLACES[fmt],
             "launches": launches[fmt],
             **checked[fmt],

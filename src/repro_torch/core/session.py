@@ -23,8 +23,8 @@ process after a JSON reload, LRU eviction, or a different matrix landing in
 the same feature bucket) — the gate always sees the true marginal cost.
 
 Telemetry hooks: a session optionally carries a ``TelemetryRecorder`` and an
-``AdaptiveFormatSelector`` (the telemetry package itself is a later slice;
-both stay ``None`` until it lands). ``serve_optimize``
+``AdaptiveFormatSelector`` (``repro_torch.telemetry.adaptive``; the recorder
+is a later slice). ``serve_optimize``
 consults the bandit for the format to serve (the cached plan is the
 incumbent arm), ``observe`` feeds measured wall times back, and a sustained
 drift verdict invalidates the stale cache entries so the next request
@@ -34,11 +34,13 @@ telemetry package, so ``repro_torch.core`` stays import-cycle-free.
 Partitioned plans (``partitioned_optimize``) are cached per feature bucket
 under a ``part:max<k>`` mode and replayed onto each matrix's own row
 boundaries; with ``fused=True`` the composite runs as one launch. A
-``cost_model=`` given to the session scores those plans. Not in this slice
-(see ROADMAP.md): the adaptive/telemetry branches of
+``cost_model=`` given to the session scores those plans.
+``compile_spmspv`` adds the sparse-frontier twin of a plan's kernel for the
+iterative solvers, booked like any other compile. Not in the port yet (see
+ROADMAP.md, queue A item 4): the adaptive/telemetry branches of
 ``serve_partitioned``/``observe_partitioned`` (they need the telemetry
-slice's per-block arms), loading ``.calibration.json`` and ``calibrate``,
-and the SpMSpV path (``compile_spmspv``).
+recorder and its per-block arms), loading ``.calibration.json`` and
+``calibrate``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ from repro_torch.core.cache import CacheEntry, TuningCache
 from repro_torch.core.features import SparsityFeatures, extract_features
 from repro_torch.kernels.common import DEFAULT_SCHEDULE, KernelSchedule
 from repro_torch.kernels.ops import (
+    compile_spmspv as _compile_spmspv_kernel,
     compile_spmv,
     kernel_memo_stats,
     kernel_memoized,
@@ -122,9 +125,9 @@ def _part_mode_key(max_blocks: int) -> str:
 
 def _needs_telemetry_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} with a telemetry recorder or adaptive selector needs "
-        "telemetry.adaptive.block_arm_bucket, which belongs to the telemetry "
-        "slice of the port (see ROADMAP.md)"
+        f"{what} with a telemetry recorder or adaptive selector needs the "
+        "telemetry recorder and its per-block arms, which are not ported yet "
+        "(ROADMAP.md, queue A item 4)"
     )
 
 
@@ -268,6 +271,25 @@ class AutoSpmvSession:
         )
         self.stats.kernel_compiles += kernel_memo_stats()["compiles"] - before
         return kernel
+
+    def compile_spmspv(
+        self, dense: np.ndarray, schedule: KernelSchedule = DEFAULT_SCHEDULE
+    ):
+        """Session-accounted SpMSpV compilation (sparse-frontier twin path).
+
+        Shares the matrix fingerprint (and thus the process kernel memo)
+        with the SpMV plans for the same matrix, puts the storage on the
+        tuner's device, and books any real conversion into
+        ``stats.kernel_compiles`` — so an iterative solver that lazily adds
+        the SpMSpV path still shows up as exactly one extra compile in the
+        amortization counters."""
+        fp, _, _ = self._analyze(dense)
+        before = kernel_memo_stats()["compiles"]
+        prepared = _compile_spmspv_kernel(
+            dense, schedule, device=self.tuner.device, memo_key=fp
+        )
+        self.stats.kernel_compiles += kernel_memo_stats()["compiles"] - before
+        return prepared
 
     def plan_key(
         self,

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the paper's compute hot-spot: the SpMV
 kernel itself (CSR / ELL / BELL / SELL, the BCSR plugin's ``bcsr.py``),
 schedule-parameterized by the Auto-SpMV compile-time mode, and the fused
-single-launch partitioned kernel (``fused.py``). ``ops.py`` is the public
+single-launch partitioned kernel (``fused.py``) and the sparse-input-vector
+SpMSpV kernel (``spmspv.py``). ``ops.py`` is the public
 wrapper; each kernel module holds its launch wrapper beside a plain PyTorch
 version; ``ref.py`` holds the plain-torch oracles; ``build.py`` compiles
 ``../csrc`` at first use."""
@@ -20,8 +21,10 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.ops import (
     InfeasibleConfig,
+    PreparedSpmspv,
     PreparedSpmv,
     clear_kernel_memo,
+    compile_spmspv,
     compile_spmv,
     compile_spmv_block,
     compile_spmv_fused,
@@ -34,6 +37,7 @@ from repro_torch.kernels.ops import (
     matrix_fingerprint,
     prepare,
     set_kernel_memo_limit,
+    spmspv,
     spmv,
 )
 
@@ -48,8 +52,10 @@ __all__ = [
     "MAX_FUSED_STEPS",
     "fused_nnz_tile",
     "InfeasibleConfig",
+    "PreparedSpmspv",
     "PreparedSpmv",
     "clear_kernel_memo",
+    "compile_spmspv",
     "compile_spmv",
     "compile_spmv_block",
     "compile_spmv_fused",
@@ -63,5 +69,6 @@ __all__ = [
     "prepare",
     "resolve_device",
     "set_kernel_memo_limit",
+    "spmspv",
     "spmv",
 ]

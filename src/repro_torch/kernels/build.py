@@ -28,6 +28,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 KERNEL_SOURCES = (
     "spmv_csr", "spmv_ell", "spmv_sell", "spmv_bell", "spmv_fused", "spmv_bcsr",
+    "spmspv_csc",
 )
 _SHARED_HEADERS = ("common.cuh",)
 NVCC_FLAGS = (

@@ -3,7 +3,8 @@
 ``prepare`` converts a dense matrix into the requested format with storage
 geometry matched to a ``KernelSchedule`` (the compile-time parameters the
 Auto-SpMV predictor emits) and puts it on ``device``; ``spmv`` runs the
-matching kernel on the container's device. Both are thin lookups into the
+matching kernel on the container's device (``spmspv`` / ``compile_spmspv``:
+the sparse-input-vector twin over a ``CscEll``). Both are thin lookups into the
 pluggable format registry (``repro_torch.sparse.registry``): the per-format
 conversion, alignment padding, feasibility checks, and kernel binding live
 on each ``FormatSpec``, so a format registered at runtime is served here
@@ -67,6 +68,22 @@ def spmv(
     from repro_torch.sparse.registry import spec_for
 
     return spec_for(mat).spmv(mat, x, schedule)
+
+
+def spmspv(
+    mat, active: np.ndarray, xvals: np.ndarray, schedule: KernelSchedule = DEFAULT_SCHEDULE
+) -> torch.Tensor:
+    """Sparse-input-vector SpMV over a ``CscEll`` container, on its device.
+
+    ``active`` holds the frontier's column indices and ``xvals`` the
+    corresponding x values (host arrays); work scales with the frontier's
+    column nnz, not nnz(A). See ``repro_torch.kernels.spmspv`` for the
+    kernel design."""
+    from repro_torch.kernels.spmspv import CscEll, csc_spmspv
+
+    if not isinstance(mat, CscEll):
+        raise TypeError("spmspv expects a CscEll container (see compile_spmspv)")
+    return csc_spmspv(mat, active, xvals, schedule)
 
 
 @dataclass(frozen=True)
@@ -296,3 +313,72 @@ def compile_spmv_fused(
     if key is not None:
         _memo_put(key, kernel)
     return kernel
+
+
+_SPMSPV_TAG = "spmspv"
+
+
+@dataclass(frozen=True)
+class PreparedSpmspv:
+    """A schedule-specialized SpMSpV — the sparse-frontier twin of
+    ``PreparedSpmv``.
+
+    Holds the column-slice storage (on ``device``) plus the host-side
+    per-column nnz vector, so the adaptive policy can price a frontier
+    (``modeled_work``) without touching device memory.
+    """
+
+    mat: Any  # repro_torch.kernels.spmspv.CscEll
+    schedule: KernelSchedule
+    device: torch.device
+    col_nnz: Any = None  # np.ndarray (n_cols,) int64, on the host
+
+    def call_frontier(self, active: np.ndarray, xvals: np.ndarray) -> torch.Tensor:
+        return spmspv(self.mat, active, xvals, self.schedule)
+
+    def __call__(self, x) -> torch.Tensor:
+        """Dense-in/dense-out convenience: extracts the frontier host-side."""
+        from repro_torch.sparse.formats import _np
+
+        xh = _np(x)
+        active = np.flatnonzero(xh).astype(np.int32)
+        return self.call_frontier(active, xh[active])
+
+    def modeled_work(self, active: np.ndarray) -> int:
+        """Stored nonzeros this frontier touches — the SpMSpV cost model."""
+        if self.col_nnz is None:
+            return 0
+        return int(np.asarray(self.col_nnz)[np.asarray(active, dtype=np.int64)].sum())
+
+
+def compile_spmspv(
+    dense: np.ndarray,
+    schedule: KernelSchedule = DEFAULT_SCHEDULE,
+    *,
+    device: str | torch.device | None = None,
+    memo_key: Hashable | None = None,
+) -> PreparedSpmspv:
+    """prepare + bind the sparse-input-vector path.
+
+    Memoizes alongside the SpMV kernels with the ``"spmspv"`` tag in the
+    format slot and the device in the last — one extra entry per (matrix,
+    schedule, device), subject to the same LRU bound and counters, so an
+    iterative solve that uses both paths pays each conversion once."""
+    from repro_torch.kernels.spmspv import col_nnz as _col_nnz
+    from repro_torch.kernels.spmspv import csc_from_dense
+
+    device = resolve_device(device)
+    key = (memo_key, _SPMSPV_TAG, schedule, device) if memo_key is not None else None
+    hit = _memo_get(key) if key is not None else None
+    if hit is not None:
+        return hit
+    with _span("kernel.compile", fmt=_SPMSPV_TAG):
+        prepared = PreparedSpmspv(
+            csc_from_dense(dense, schedule, device=device),
+            schedule,
+            device,
+            _col_nnz(dense),
+        )
+    if key is not None:
+        _memo_put(key, prepared)
+    return prepared

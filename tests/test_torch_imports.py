@@ -64,7 +64,7 @@ def test_cuda_sources_call_no_library_kernel():
     sources = sorted((PKG / "csrc").glob("*.cu*"))
     assert {s.name for s in sources} == {
         "common.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu", "spmv_bell.cu",
-        "spmv_fused.cu", "spmv_bcsr.cu"}
+        "spmv_fused.cu", "spmv_bcsr.cu", "spmspv_csc.cu"}
     from repro_torch.kernels.build import KERNEL_SOURCES
 
     assert {f"{n}.cu" for n in KERNEL_SOURCES} == {s.name for s in sources if s.suffix == ".cu"}
@@ -80,8 +80,15 @@ def test_cuda_sources_call_no_library_kernel():
 def test_entry_points_without_device_raise_where_cuda_is_absent():
     assert not torch.cuda.is_available()  # these tests run on a CPU-only machine
     from repro_torch.core.session import build_tuner
-    from repro_torch.kernels import compile_spmv, kernel_memoized, prepare, resolve_device
+    from repro_torch.kernels import (
+        compile_spmspv,
+        compile_spmv,
+        kernel_memoized,
+        prepare,
+        resolve_device,
+    )
     from repro_torch.kernels.ref import spmv_dense
+    from repro_torch.kernels.spmspv import csc_from_dense
     from repro_torch.sparse import formats
 
     dense = np.eye(16, dtype=np.float32)
@@ -96,6 +103,8 @@ def test_entry_points_without_device_raise_where_cuda_is_absent():
         lambda: formats.container_from_numpy("ell", {"data": dense, "cols": dense}, shape=(16, 16)),
         lambda: spmv_dense(dense, np.ones(16, np.float32)),
         lambda: build_tuner(),
+        lambda: compile_spmspv(dense),
+        lambda: csc_from_dense(dense),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -249,7 +249,7 @@ def test_invalidate_and_evict_format(tuners, clean):
     assert sess.stats.invalidations == 1
     sess.compile_time_optimize(dense, "latency")
     assert sess.invalidate(key[0]) == 1 and sess.invalidate(key[0]) == 0
-    for later in ("compile_spmspv", "calibrate"):
+    for later in ("calibrate",):
         assert not hasattr(sess, later)  # later slices; no silent stand-ins
 
 
