@@ -11,15 +11,15 @@ It imports ``repro_torch`` only (never JAX, never the JAX package) and needs
 no network. Phases, each printing one JSON object on a line of its own:
 
 1. ``env``      torch / CUDA / nvcc versions, card name and power limit.
-2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (seven sources) for
+2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (eight sources) for
                 sm_90a (one ``nvcc`` per source, in parallel) and reports the
                 seconds and each kernel's registers and spills (ptxas).
 3. ``check``    every hand-written kernel against its plain PyTorch version
                 and a float64 host product on the card, over six schedules,
                 at the shapes the served path gives it; a disagreement beyond
                 the stated tolerance raises. Also times kernel, plain version
-                and, where one PyTorch call computes the same function, that
-                call. The fused kernel runs on the stream ``lower_fused``
+                and the library's CSR product of the same matrix
+                (``torch.sparse_csr_tensor(A) @ x``). The fused kernel runs on the stream ``lower_fused``
                 makes from a forced four-block plan of ``hetero``, the BCSR
                 kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel on the
                 ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
@@ -63,10 +63,42 @@ no network. Phases, each printing one JSON object on a line of its own:
                 launches must equal the solves' SpMSpV matvecs, CSR launches
                 their SpMV matvecs. Then a host-clock breakdown of one
                 iteration (copies, kernel, numpy step).
+9. ``lm``       ``qwen3-0.6b`` at its published width (28 layers, d 1,024,
+                d_ff 3,072, vocabulary 151,936; fp32 params, bf16 compute),
+                random weights from a seeded generator on the card, the
+                serve CLI's tuner, every FFN matrix magnitude-pruned to 5 %
+                into a ``SparseInferenceEngine`` and planned (84 plans).
+                (a) One decode step of four tokens with the engine against
+                the same step without it: scaled logits error <= 1e-4 and
+                the same argmax in float32 compute (TF32 off), <= 3e-2 in
+                bf16. The engine's planned CSR kernels (fp32 schedule) on
+                that step's token vectors at ``w_up`` and ``w_down``
+                against their plain version and a float64 host product,
+                timed at ``w_up``. (b) ``BatchedServer`` (4 slots,
+                ``max_len`` 256, 16 new tokens) on 8 requests of 4-16
+                prompt tokens: every tick must
+                launch the CSR kernel 84 x 4 = 336 times and nothing else.
+                (c) ``repro_torch.launch.serve.main`` in LM mode in-process
+                (``--lm-sparse``, reduced config, as the CLI runs). Then a
+                host-clock split of one tick (SpMVs, logits, the rest).
+10. ``spmm``    the ELL SpMM kernel: ``rim`` (n = 13,999) at k = 1, 4, 16,
+                64 and the LM's own pruned ``g0x0.mlp.w_up`` / ``w_down`` at
+                k = 4 (the tick's four token vectors, also held against the
+                engine's four per-token SpMVs) and k = 16, over the six
+                schedules against the plain version and a float64 host
+                product, at k = 1 against the ELL SpMV kernel; times beside
+                the byte bound, the library's CSR SpMM and k separate CSR
+                SpMVs. Then ``ops.spmm`` once per case: its main path.
 
-Launch counters are set to 0 just before phases 4-8 and read just after each:
+Byte bounds count what the product needs: for padded formats (ELL, SELL,
+ELL SpMM) each nonzero's value and column plus one padding slot per padded
+row to find its end, for BELL the nonzero blocks; the bound over every
+stored slot stands beside it as ``padded_bound_ms``.
+
+Launch counters are set to 0 just before phases 4-10 and read just after each:
 a kernel of the path that was launched no time fails the run. Then come the
-``kernels`` line (phase 3's numbers with the main path's launch counts), the
+``kernels`` line (phase 3's numbers with the main path's launch counts; the
+CSR kernel's entry also carries its numbers at the LM's FFN shape), the
 ``nvidia-smi`` name/power-limit line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the exit code
 is not 0; without a CUDA device the script exits at once with code 2 and
@@ -101,6 +133,7 @@ if not torch.cuda.is_available():
 
 import numpy as np  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.features import extract_features  # noqa: E402
 from repro_torch.core.objectives import ObjectiveValues  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
@@ -114,12 +147,13 @@ from repro_torch.kernels.common import (  # noqa: E402
     ceil_to,
 )
 from repro_torch.kernels.csr import csr_spmv, csr_spmv_plain  # noqa: E402
-from repro_torch.kernels.ell import ell_spmv, ell_spmv_plain  # noqa: E402
+from repro_torch.kernels.ell import ell_spmm, ell_spmm_plain, ell_spmv, ell_spmv_plain  # noqa: E402
 from repro_torch.kernels.fused import fused_spmv, fused_spmv_plain, lower_fused  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     compile_spmv,
     matrix_fingerprint,
     prepare,
+    spmm,
 )
 from repro_torch.kernels.sell import sell_spmv, sell_spmv_plain  # noqa: E402
 from repro_torch.kernels.spmspv import (  # noqa: E402
@@ -129,7 +163,13 @@ from repro_torch.kernels.spmspv import (  # noqa: E402
     csc_spmspv_kernel,
     csc_spmspv_plain,
 )
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import solve as launch_solve  # noqa: E402
+from repro_torch.models import decode_step, init_cache, init_params, model_specs, prefill  # noqa: E402
+from repro_torch.models.layers import attention, mlp  # noqa: E402
+from repro_torch.models.model import _logits  # noqa: E402
+from repro_torch.models.param import tree_map  # noqa: E402
+from repro_torch.models.sparse_linear import SparseInferenceEngine, prune_model_ffns  # noqa: E402
 from repro_torch.partition import (  # noqa: E402
     BlockPlan,
     CompositePlan,
@@ -138,9 +178,20 @@ from repro_torch.partition import (  # noqa: E402
     partition_rows,
 )
 from repro_torch.solvers import AdaptiveSpmvPolicy, cg, pagerank, power_iteration  # noqa: E402
-from repro_torch.sparse.generate import SUITE, generate_by_name, random_matrix  # noqa: E402
+from repro_torch.sparse.generate import (  # noqa: E402
+    MATRIX_NAMES,
+    SUITE,
+    generate_by_name,
+    random_matrix,
+)
 from repro_torch.sparse.registry import format_names, unregister_format  # noqa: E402
-from repro_torch.train.serve import SpmvRequest, SpmvServer  # noqa: E402
+from repro_torch.train.serve import (  # noqa: E402
+    BatchedServer,
+    Request,
+    ServeConfig,
+    SpmvRequest,
+    SpmvServer,
+)
 from repro_torch.utils.timing import cuda_time_ms  # noqa: E402
 
 DEVICE = torch.device("cuda", 0)
@@ -167,12 +218,14 @@ SCHEDULES = [
 ]
 
 WRAPPERS = {"csr": csr_spmv, "ell": ell_spmv, "sell": sell_spmv, "bell": bell_spmv,
-            "fused": fused_spmv, "bcsr": bcsr_spmv, "spmspv": csc_spmspv}
+            "fused": fused_spmv, "bcsr": bcsr_spmv, "spmspv": csc_spmspv, "spmm": ell_spmm}
 BLOCK_FORMATS = ("csr", "ell", "sell", "bell", "bcsr")  # one wrapper each
-KERNEL_ORDER = ("csr", "ell", "sell", "bell", "fused", "bcsr", "spmspv")
+KERNEL_ORDER = ("csr", "ell", "sell", "bell", "fused", "bcsr", "spmspv", "spmm")
 # the CUDA source (csrc/<name>.cu) of each kernel
-SOURCE = {**{k: f"spmv_{k}" for k in KERNEL_ORDER}, "spmspv": "spmspv_csc"}
-KERNEL_NAME = {**{k: f"{k}_spmv" for k in KERNEL_ORDER}, "spmspv": "csc_spmspv"}
+SOURCE = {**{k: f"spmv_{k}" for k in KERNEL_ORDER}, "spmspv": "spmspv_csc",
+          "spmm": "spmm_ell"}
+KERNEL_NAME = {**{k: f"{k}_spmv" for k in KERNEL_ORDER}, "spmspv": "csc_spmspv",
+               "spmm": "ell_spmm"}
 REPLACES = {
     "csr": "src/repro/kernels/csr.py:48",
     "ell": "src/repro/kernels/ell.py:45",
@@ -181,6 +234,7 @@ REPLACES = {
     "fused": "src/repro/kernels/fused.py:154",
     "bcsr": "src/repro/sparse/bcsr.py:208",
     "spmspv": "src/repro/kernels/spmspv.py:145",
+    "spmm": "src/repro/kernels/ell.py:98",
 }
 # matrix each kernel is checked and timed on: one the served path gives it
 CHECK_MATRIX = {"csr": "human_gene2", "ell": "rim", "sell": "rim", "bell": BELL_MATRIX,
@@ -205,6 +259,17 @@ SOLVE_TOL = {"pagerank": 1e-7, "cg": 1e-6}
 POWER_ITERS = 30
 CLI_SCALE = WEB_SCALE  # launch.solve builds its own tuner at this scale
 _ZERO = ObjectiveValues(0.0, 0.0, 0.0, 0.0)
+
+# lm phase: qwen3-0.6b as published (28 layers, d 1,024, d_ff 3,072, vocab
+# 151,936; fp32 params, bf16 compute), FFNs pruned to 5 % and served sparse
+LM_ARCH = "qwen3-0.6b"
+LM_DENSITY = 0.05
+LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS, LM_REQUESTS = 4, 256, 16, 8
+# spmm phase: B8 on rim at these numbers of right-hand sides, and on two of
+# the LM's own pruned FFN matrices at the decode tick's k = 4 and at k = 16
+SPMM_KS = (1, 4, 16, 64)
+FFN_KS = (4, 16)
+FFN_CHECK = ("g0x0.mlp.w_up", "g0x0.mlp.w_down")
 
 
 def emit(phase: str, **payload) -> None:
@@ -290,32 +355,59 @@ def host_product(dense: np.ndarray, x: np.ndarray) -> np.ndarray:
 
 
 # ------------------------------------------------- per-kernel call closures
+def padded_needs(fmt: str, mat) -> tuple[int, int, int]:
+    """(bytes of a padded container the product needs, bytes it stores,
+    real entries). The product needs each nonzero's value and column (ELL,
+    SELL) or each nonzero block's values and block column (BELL); to find
+    where a padded row ends, one padding slot of each row that has padding
+    (ELL, SELL). The rest of the padding, and the rows added to align the
+    planes, are not needed: a kernel can stop at a row's tail."""
+    n_rows = mat.shape[0]
+    cols = mat.block_cols if fmt == "bell" else mat.cols
+    stored = (mat.data.numel() + cols.numel()) * 4
+    if fmt == "bell":
+        nb = int((mat.data != 0).flatten(2).any(-1).sum())
+        return nb * (mat.br * mat.bc * 4 + 4), stored, nb
+    if fmt == "ell":
+        counts, width = (mat.data[:n_rows] != 0).sum(dim=1), mat.data.shape[1]
+    else:  # sell: slices of C consecutive rows, each padded to its slice's width
+        real = mat.data != 0
+        counts = torch.bincount(mat.row_ids[real].long(), minlength=n_rows + 1)[:n_rows]
+        width = mat.slice_width.long().repeat_interleave(mat.C)[:n_rows]
+    nnz, tails = int(counts.sum()), int((counts < width).sum())
+    return 8 * (nnz + tails), stored, nnz
+
+
 def kernel_calls(fmt: str, mat, x: torch.Tensor, schedule: KernelSchedule):
-    """(kernel call, plain call, input tensors, output elements, flops) for
+    """(kernel call, plain call, inputs the product needs (tensors or byte
+    counts), output elements, flops, bytes of the padded planes or None) for
     one prepared matrix, at exactly the arguments the registry's spmv hands
     the wrapper."""
     if fmt == "csr":
         args = (mat.data, mat.indices, mat.indptr, x, schedule)
         ins, fl = (mat.data, mat.indices, mat.indptr, x), 2 * mat.data.shape[0]
         out_elems = mat.shape[0]
-        return (lambda: csr_spmv(*args)), (lambda: csr_spmv_plain(*args)), ins, out_elems, fl
+        return (lambda: csr_spmv(*args)), (lambda: csr_spmv_plain(*args)), ins, out_elems, fl, None
     if fmt == "ell":
         args = (mat.data, mat.cols, x, schedule)
-        ins, fl = (mat.data, mat.cols, x), 2 * mat.data.numel()
-        return (lambda: ell_spmv(*args)), (lambda: ell_spmv_plain(*args)), ins, mat.data.shape[0], fl
+        need, stored, nnz = padded_needs(fmt, mat)
+        return ((lambda: ell_spmv(*args)), (lambda: ell_spmv_plain(*args)), (need, x),
+                mat.shape[0], 2 * nnz, stored)
     if fmt == "sell":
         args = (mat.data, mat.cols, mat.slice_ptr, mat.slice_width, x, mat.C, schedule)
-        ins = (mat.data, mat.cols, mat.slice_ptr, mat.slice_width, x)
-        fl = 2 * mat.data.numel()
-        return (lambda: sell_spmv(*args)), (lambda: sell_spmv_plain(*args)), ins, mat.n_slices * mat.C, fl
+        need, stored, nnz = padded_needs(fmt, mat)
+        ins = (need, mat.slice_ptr, mat.slice_width, x)
+        return ((lambda: sell_spmv(*args)), (lambda: sell_spmv_plain(*args)), ins,
+                mat.shape[0], 2 * nnz, stored)
     if fmt == "bell":
         n_cols = mat.shape[1]
         xp = torch.zeros(ceil_to(n_cols, mat.bc), dtype=x.dtype, device=x.device)
         xp[:n_cols] = x
         panels = xp.reshape(-1, mat.bc)
         args = (mat.data, mat.block_cols, panels, schedule)
-        ins, fl = (mat.data, mat.block_cols, panels), 2 * mat.data.numel()
-        return (lambda: bell_spmv(*args)), (lambda: bell_spmv_plain(*args)), ins, mat.data.shape[0] * mat.br, fl
+        need, stored, nb = padded_needs(fmt, mat)
+        return ((lambda: bell_spmv(*args)), (lambda: bell_spmv_plain(*args)), (need, panels),
+                mat.shape[0], 2 * nb * mat.br * mat.bc, stored)
     if fmt == "bcsr":
         n_cols = mat.shape[1]
         xp = torch.zeros(ceil_to(n_cols, mat.bc), dtype=x.dtype, device=x.device)
@@ -326,22 +418,23 @@ def kernel_calls(fmt: str, mat, x: torch.Tensor, schedule: KernelSchedule):
         ins = (mat.data[:nb], mat.block_cols[:nb], mat.block_ptr, panels)
         fl = 2 * nb * mat.br * mat.bc
         return ((lambda: bcsr_spmv(*args)), (lambda: bcsr_spmv_plain(*args)), ins,
-                mat.n_block_rows * mat.br, fl)
+                mat.shape[0], fl, None)
     if fmt == "fused":
         args = (mat.data, mat.cols, mat.rows, mat.tile_map, x, mat.n_rows, mat.tile)
         kw = dict(unroll=mat.unroll, accum_dtype=mat.accum_dtype)
         ins = (mat.data, mat.cols, mat.rows, mat.tile_map, x)
         fl = 2 * int((mat.rows < mat.n_rows).sum())  # real entries, not padding
         return ((lambda: fused_spmv(*args, **kw)), (lambda: fused_spmv_plain(*args, **kw)),
-                ins, mat.n_rows + 1, fl)
+                ins, mat.n_rows + 1, fl, None)
     raise ValueError(fmt)
 
 
 def bound(ins, out_elems: int, flops: int) -> tuple[float, str, int]:
-    """Least time the card could take: each input read once, the output
-    written once, against the HBM rate; the operations against the fp32
-    rate. Returns (ms, which bound, bytes)."""
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + 4 * out_elems
+    """Least time the card could take: each input (a tensor or a byte
+    count) read once, the output written once, against the HBM rate; the
+    operations against the fp32 rate. Returns (ms, which bound, bytes)."""
+    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size() for t in ins)
+    nbytes += 4 * out_elems
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -368,7 +461,7 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
     entry = None
     for sched in schedules:
         mat = prepared(fmt, dense, sched)
-        kern, plain, ins, out_elems, flops = kernel_calls(fmt, mat, x, sched)
+        kern, plain, ins, out_elems, flops, stored = kernel_calls(fmt, mat, x, sched)
         y_k = kern()
         torch.cuda.synchronize()  # a fault during the run surfaces here
         y_p = plain()
@@ -399,6 +492,9 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
                 "bytes": nbytes,
                 "library_ms": None,
             }
+            if stored is not None:  # beside it, the bound over every padded slot
+                entry["padded_bytes"] = nbytes - ins[0] + stored  # ins[0]: the needed planes
+                entry["padded_bound_ms"] = 1e3 * entry["padded_bytes"] / HBM_BYTES_PER_S
             library_call(fmt, dense, mat, x, ref64, entry)
         del mat
     entry["max_abs_err"] = worst
@@ -408,35 +504,18 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
 
 
 def library_call(fmt: str, dense: np.ndarray, mat, x: torch.Tensor, ref64, entry: dict) -> None:
-    """Time one PyTorch call that computes the same y = A x, where there is
-    one: a CSR product (also for the fused stream, whose function is the
-    whole matrix's product) or a BSR product of the BCSR blocks. A refusal
-    by PyTorch is recorded in place of the time."""
+    """Time one PyTorch call that computes the same y = A x: the library's
+    CSR product of the same matrix, whatever storage the kernel reads (the
+    fused stream's function is the whole matrix's product too)."""
+    csr = mat if fmt == "csr" else prepare(dense, "csr", device=DEVICE)
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # "sparse CSR/BSR is beta" notices
-        if fmt in ("csr", "fused"):
-            csr = mat if fmt == "csr" else prepare(dense, "csr", device=DEVICE)
-            a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
-                                        size=csr.shape, device=DEVICE)
-            call = lambda: a @ x  # noqa: E731
-        elif fmt == "bcsr":
-            nb, (n_rows, n_cols) = mat.n_blocks, mat.shape
-            xp = torch.zeros(ceil_to(n_cols, mat.bc), 1, device=DEVICE)
-            xp[:n_cols, 0] = x
-            try:
-                a = torch.sparse_bsr_tensor(
-                    mat.block_ptr, mat.block_cols[:nb], mat.data[:nb],
-                    size=(mat.n_block_rows * mat.br, xp.shape[0]), device=DEVICE)
-                call = lambda: (a @ xp)[:n_rows, 0]  # noqa: E731
-                call()
-            except Exception as exc:  # PyTorch refuses: recorded, not hidden
-                entry["library_error"] = f"{type(exc).__name__}: {exc}"[:300]
-                return
-        else:
-            return
-        y_l = call().cpu().numpy()
-    entry["library_err"] = scaled_err(y_l, ref64)
-    entry["library_ms"] = timed(call)
+        warnings.simplefilter("ignore")  # "sparse CSR is beta" notices
+        a = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                    size=csr.shape, device=DEVICE)
+        y_l = (a @ x).cpu().numpy()
+        entry["library_err"] = scaled_err(y_l, ref64)
+        entry["library_ms"] = timed(lambda: a @ x)
+    entry["library"] = "torch.sparse_csr_tensor(A) @ x"
 
 
 # ------------------------------------------------------------ partitioned
@@ -617,6 +696,8 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
                    "library_err": scaled_err(y_lib, f["ref64"]),
                    "b1_ms": timed(lambda: csr_spmv(csr.data, csr.indices, csr.indptr, x_dev,
                                                    sched)),
+                   "b1_plain_ms": timed(lambda: csr_spmv_plain(
+                       csr.data, csr.indices, csr.indptr, x_dev, sched), reps=5),
                    "b1_err": scaled_err(y_b1, f["ref64"]),
                    "err_vs_plain": err, "err_vs_host": err_host}
             if max(row["library_err"], row["b1_err"]) > 1e-4:
@@ -631,7 +712,7 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
         "schedule": sched_tag(time_schedule),
         "frontier": "10%",
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
-                                "library_ms", "b1_ms")},
+                                "library_ms", "b1_ms", "b1_plain_ms")},
         "library": "torch.sparse_csr_tensor(A) @ x (x dense, the frontier's values)",
         "cscell": {"width": mat.width, "nbytes": mat.nbytes, "max_col_nnz": int(counts.max()),
                    "dangling_columns": int((counts == 0).sum()),
@@ -897,6 +978,426 @@ def run_solve_phase(tuner, web: np.ndarray, rim: np.ndarray) -> tuple[dict, dict
     return payload, launches
 
 
+# ---------------------------------------------------------------------- lm
+class CaptureHandle:
+    """An engine handle that records the token vectors one decode step feeds
+    the named FFN matmuls, and otherwise hands every call to the engine."""
+
+    def __init__(self, handle, names):
+        self.handle, self.names, self.seen = handle, names, {}
+
+    def matmul(self, name, x, w):
+        if name in self.names:
+            self.seen[name] = x.detach().reshape(-1, x.shape[-1]).float().clone()
+        return self.handle.matmul(name, x, w)
+
+
+def lm_requests(cfg, n: int) -> list:
+    """``launch.serve.serve_lm``'s synthetic traffic: prompts of 4-16 tokens
+    from a numpy generator seeded with the run's seed."""
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, max_new_tokens=LM_NEW_TOKENS, slo="latency-critical",
+                    prompt=rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 17))).tolist())
+            for i in range(n)]
+
+
+def lm_decode_check(pruned, cfg, engine, prompt_len: int = 8) -> tuple[dict, dict]:
+    """One decode step of a batch of ``LM_SLOTS`` with the engine against the
+    same step without it, on the same pruned params: in float32 compute
+    (scaled logits error <= 1e-4, equal argmax) and in the config's bf16
+    (<= 3e-2). Returns (checks, the bf16 step's token vectors at FFN_CHECK)."""
+    rng = np.random.default_rng(SEED + 31)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_SLOTS, prompt_len)),
+                             dtype=torch.int32, device=DEVICE)
+    out, seen = {}, {}
+    for compute, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        c = cfg.replace(compute_dtype=compute)
+        logits, cache, _ = prefill(pruned, c, init_cache(c, LM_SLOTS, LM_MAX_LEN, DEVICE),
+                                   tokens=tokens)
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.full((LM_SLOTS, 1), prompt_len, dtype=torch.int32, device=DEVICE)
+        dense, _ = decode_step(pruned, c, cache, nxt, pos)
+        handle = CaptureHandle(engine.bind("latency"), FFN_CHECK)
+        sparse, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True, engine=handle)
+        d, s = dense.cpu().numpy(), sparse.cpu().numpy()
+        row = {"err": scaled_err(s, d), "tol": tol,
+               "argmax_equal": bool((d.argmax(-1) == s.argmax(-1)).all()),
+               "max_abs_logit": float(np.abs(d).max()), "shape": list(s.shape)}
+        out[compute] = row
+        if not (np.isfinite(s).all() and s.shape == (LM_SLOTS, 1, cfg.vocab_size)
+                and row["err"] <= tol and (compute != "float32" or row["argmax_equal"])):
+            raise AssertionError(f"sparse decode differs from dense in {compute}: {row}")
+        if compute == cfg.compute_dtype:
+            seen = handle.seen
+    return out, seen
+
+
+def check_b1_ffn(engine, seen: dict) -> list[dict]:
+    """Hold the engine's planned B1 kernels, at the schedules the decode path
+    serves them with, against their plain version and a float64 host
+    product on the decode tick's token vectors, for each FFN_CHECK matrix;
+    time the first beside its bound, plain version and library call.
+    Comparison launches only."""
+    rows = []
+    for n in FFN_CHECK:
+        kernel = engine.plan(n, "latency")[1]
+        if type(kernel.mat).__name__ != "CSR" or kernel.schedule.accum_dtype != "float32":
+            raise AssertionError(f"{n} is not served by B1 in float32: {kernel.schedule}")
+        A = engine.layer(n).weight_t
+        X = seen[n]  # (tokens, d_in)
+        ref64 = A.astype(np.float64) @ X.cpu().numpy().astype(np.float64).T
+        row = {"matrix": n, "shape": list(A.shape), "nnz": int((A != 0).sum()),
+               "schedule": sched_tag(kernel.schedule), "x": "the decode tick's token vectors",
+               "err_vs_plain": 0.0, "err_vs_host": 0.0}
+        for i in range(X.shape[0]):
+            x = X[i].contiguous()
+            kern, plain, ins, out_elems, flops, _ = kernel_calls("csr", kernel.mat, x,
+                                                                 kernel.schedule)
+            yk = kern().cpu().numpy()
+            row["err_vs_plain"] = max(row["err_vs_plain"], scaled_err(yk, plain().cpu().numpy()))
+            row["err_vs_host"] = max(row["err_vs_host"], scaled_err(yk, ref64[:, i]))
+        if max(row["err_vs_plain"], row["err_vs_host"]) > 1e-4:
+            raise AssertionError(f"B1 disagrees at the FFN shape: {row}")
+        if n == FFN_CHECK[0]:
+            bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
+            row.update(ms=timed(kern), plain_ms=timed(plain, reps=5), bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes)
+            library_call("csr", A, kernel.mat, x, ref64[:, -1], row)
+        rows.append(row)
+    return rows
+
+
+def lm_breakdown(pruned, cfg, engine, names) -> dict:
+    """Host-clock split of one decode tick of ``LM_SLOTS`` tokens: the whole
+    sparse step against the dense one, the SpMVs alone (every planned kernel
+    on ``LM_SLOTS`` vectors), the logits, and one prompt's prefill; beside
+    them the device time of one B1 SpMV per FFN shape (CUDA events). Plans
+    are the engine's (all hits); these launches are timing, not the main
+    path."""
+    rng = np.random.default_rng(SEED + 41)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 16)),
+                             dtype=torch.int32, device=DEVICE)
+    _, cache, _ = prefill(pruned, cfg, init_cache(cfg, LM_SLOTS, LM_MAX_LEN, DEVICE),
+                          tokens=tokens)
+    nxt = tokens[:, -1:]
+    pos = torch.full((LM_SLOTS, 1), 16, dtype=torch.int32, device=DEVICE)
+    handle = engine.bind("latency")
+    kernels = [(engine.plan(n, "latency")[1], engine.layer(n).d_in) for n in names]
+    xs = {d: [torch.randn(d, device=DEVICE) for _ in range(LM_SLOTS)]
+          for d in {d for _, d in kernels}}
+    h = torch.randn((LM_SLOTS, 1, cfg.d_model), device=DEVICE).to(torch.bfloat16)
+    one_prompt = tokens[:1]
+    device_ms = {}
+    for n in FFN_CHECK + ("g0x0.mlp.w_gate",):
+        kern = engine.plan(n, "latency")[1]
+        x = xs[engine.layer(n).d_in][0]
+        device_ms[n.split(".")[-1]] = timed(lambda: kern(x))
+    # one layer's parts, each run once per layer (layer 0's params and cache)
+    p0 = tree_map(lambda a: a[0], pruned["groups"][0])
+    c0 = tree_map(lambda a: a[0], cache["groups"][0])
+    L = cfg.n_layers
+    sparse_step = lambda: decode_step(pruned, cfg, cache, nxt, pos,  # noqa: E731
+                                      unroll_layers=True, engine=handle)
+    return {
+        "sparse_tick_ms": host_ms(sparse_step, reps=10),
+        "dense_tick_ms": host_ms(lambda: decode_step(pruned, cfg, cache, nxt, pos), reps=10),
+        "spmvs_ms": host_ms(lambda: [k(x) for k, d in kernels for x in xs[d]], reps=10),
+        "attention_all_layers_ms": host_ms(lambda: [attention(
+            p0["attn"], h, cfg, positions=pos, cache=c0) for _ in range(L)], reps=10),
+        "dense_ffn_all_layers_ms": host_ms(lambda: [mlp(p0["mlp"], h, cfg)
+                                                    for _ in range(L)], reps=10),
+        "cache_restack_ms": host_ms(lambda: tree_map(lambda *a: torch.stack(a),
+                                                     *([c0] * L)), reps=10),
+        "logits_ms": host_ms(lambda: _logits(pruned, cfg, h), reps=10),
+        "prefill_16_tokens_ms": host_ms(lambda: prefill(
+            pruned, cfg, init_cache(cfg, 1, LM_MAX_LEN, DEVICE), tokens=one_prompt), reps=5),
+        "b1_device_ms": device_ms,
+        "spmvs_per_tick": len(kernels) * LM_SLOTS,
+        "profile": profile_tick(sparse_step),
+    }
+
+
+def profile_tick(step) -> dict:
+    """One sparse tick under ``torch.profiler``: the device's busy time (sum
+    of kernel times) against the tick's wall time, and the kernels that
+    take most of it. Where the profiler records no device activity the
+    share is reported as not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms if kernels else None,
+            "busy_share": busy_ms / wall_ms if kernels else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+def run_lm_phase(cfg) -> tuple[dict, dict, dict]:
+    """The sparse LM serving path at ``cfg``'s width through the public
+    entry points: params on the card from a seeded generator, the CLI's
+    tuner, FFNs pruned into a ``SparseInferenceEngine``, every matrix
+    planned; (a) sparse vs dense decode; (b) ``BatchedServer`` on
+    ``LM_REQUESTS`` requests, B1 launches counted; (c) the CLI's LM mode
+    in-process at the reduced config. Returns (payload, launches of (b) and
+    (c), the spmm phase's FFN inputs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    times = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    times["init_params_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tuner = launch_serve.build_tuner(scale=0.0008, names=MATRIX_NAMES[:4], n_extra=0,
+                                     fit_overhead=False, device=DEVICE)
+    times["tuner_s"] = time.perf_counter() - t0
+    session = AutoSpmvSession(tuner)
+    engine = SparseInferenceEngine(session)
+    t0 = time.perf_counter()
+    pruned = prune_model_ffns(params, cfg, engine, density=LM_DENSITY)
+    torch.cuda.synchronize()
+    times["prune_s"] = time.perf_counter() - t0
+    del params
+    names = [n for n in engine._by_name if engine.layer(n).spmv_eligible]
+    t0 = time.perf_counter()
+    n_planned = engine.plan_all("latency")
+    torch.cuda.synchronize()
+    times["plan_all_s"] = time.perf_counter() - t0
+    want_plans = 3 * cfg.n_layers
+    if not (engine.stats.registered == engine.stats.spmv_layers == n_planned == want_plans):
+        raise AssertionError(f"expected {want_plans} SpMV-eligible FFN matrices: {engine.stats}")
+
+    t0 = time.perf_counter()
+    checks, seen = lm_decode_check(pruned, cfg, engine)
+    checks["b1_ffn"] = check_b1_ffn(engine, seen)
+    times["check_s"] = time.perf_counter() - t0
+    # the engine's own per-token SpMVs (its planned B1 kernels) on the
+    # captured tick: the spmm phase's yardstick
+    tick = {}
+    for n in FFN_CHECK:
+        _, kernel = engine.plan(n, "latency")
+        x = seen[n]
+        tick[n] = {"A": engine.layer(n).weight_t, "X": x.t().contiguous(),
+                   "Y": torch.stack([kernel(x[i]) for i in range(x.shape[0])], dim=1)}
+
+    # (b) serve: the counted main path
+    server = BatchedServer(pruned, cfg, ServeConfig(batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                                                    max_new_tokens=LM_NEW_TOKENS), engine=engine)
+    reqs = lm_requests(cfg, LM_REQUESTS)
+    first_token_s, admit = {}, server._admit
+    t_run = time.perf_counter()
+
+    def timed_admit(req, slot):  # the first token comes out of the prefill
+        admit(req, slot)
+        torch.cuda.synchronize()
+        first_token_s[req.rid] = time.perf_counter() - t_run
+
+    server._admit = timed_admit
+    reset_launches()
+    t_run = time.perf_counter()
+    server.run(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_run
+    launches = read_launches()
+    summary = server.summary()
+    n_tokens = sum(len(r.generated) for r in reqs)
+    per_tick = LM_SLOTS * want_plans
+    serve = {"wall_s": serve_s, "requests": len(reqs), "ticks": server.ticks,
+             "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
+             "first_token_s": first_token_s,
+             "tick_ms": {k: 1e3 * v for k, v in summary["tick_latency"]["latency"].items()
+                         if k.startswith("p") or k == "mean"},
+             "prompt_lens": [len(r.prompt) for r in reqs],
+             "generated": [r.generated for r in reqs],
+             "b1_launches": launches["csr"],
+             "b1_launches_per_tick": launches["csr"] / max(server.ticks, 1),
+             "engine": engine.summary(), "session": session.stats.as_dict(),
+             "energy": summary.get("energy")}
+    bad = []
+    if not all(len(r.generated) == LM_NEW_TOKENS and r.done for r in reqs):
+        bad.append("a request did not get its tokens")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        bad.append("a token outside the vocabulary")
+    if summary["requests"] != LM_REQUESTS:
+        bad.append("requests served")
+    if launches["csr"] != per_tick * server.ticks:
+        bad.append(f"B1 launches {launches['csr']} != {per_tick} x {server.ticks} ticks")
+    if launches["spmm"] != 0 or sum(launches.values()) != launches["csr"]:
+        bad.append("a kernel other than B1 ran in the decode path")
+    if engine.summary()["objectives"]["latency"]["plans"] != want_plans:
+        bad.append("plans per objective")
+    if session.stats.requests != want_plans:
+        bad.append("serve_optimize ran more than once per matrix")
+    if bad:
+        raise AssertionError(f"lm serve: {bad}: {serve}")
+
+    # (c) the CLI's LM mode, in-process, reduced config, on the card
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_done = launch_serve.main(["--arch", LM_ARCH, "--lm-sparse", "--requests", "4",
+                                  "--slots", "2", "--max-new-tokens", "4", "--max-len", "64"])
+    torch.cuda.synchronize()
+    cli_launches = read_launches()
+    cli = {"wall_s": time.perf_counter() - t0, "requests": len(cli_done),
+           "generated": [r.generated for r in cli_done], "b1_launches": cli_launches["csr"]}
+    reduced = get_config(LM_ARCH, reduced_config=True)
+    if not (len(cli_done) == 4 and all(len(r.generated) == 4 for r in cli_done)
+            and cli_launches["csr"] > 0 and cli_launches["csr"] % (3 * reduced.n_layers * 2) == 0):
+        raise AssertionError(f"lm CLI: {cli}")
+    for k in launches:
+        launches[k] += cli_launches[k]
+
+    breakdown = lm_breakdown(pruned, cfg, engine, names)
+    payload = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                          "compute": cfg.compute_dtype, "params": cfg.param_dtype},
+               "density": LM_DENSITY, "times": times, "checks": checks, "serve": serve,
+               "cli": cli, "breakdown": breakdown,
+               "served_schedules": sorted({str(p.schedule) for p in engine.plans_for("latency")}),
+               "fp32_recompiles": engine.stats.fp32_recompiles,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return payload, launches, tick
+
+
+# -------------------------------------------------------------------- spmm
+def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDULE) -> dict:
+    """Hold B8 against its plain version and a float64 host product over the
+    six schedules for every case (a matrix and its X); at k = 1 against B2 on
+    the same ELL container; where the case carries the engine's per-token
+    SpMV outputs (the decode tick's X), against those. At ``time_schedule``
+    time kernel, plain version, the library's CSR SpMM and k per-vector B1
+    launches, beside the byte bound. Comparison launches only."""
+    import scipy.sparse
+
+    worst, rows, mats = 0.0, [], {}
+    for case in cases:
+        A, X_host = case["A"], case["X"]
+        n_rows, n_cols = A.shape
+        k = X_host.shape[1]
+        X = torch.as_tensor(X_host, device=DEVICE).contiguous()
+        ref64 = scipy.sparse.csr_matrix(A).astype(np.float64) @ X_host.astype(np.float64)
+        row = {"matrix": case["name"], "shape": [n_rows, n_cols], "nnz": int((A != 0).sum()),
+               "k": k, "x": case["x_kind"], "by_schedule": {}}
+        for sched in SCHEDULES:
+            key = (case["name"], sched.rows_per_block, sched.nnz_tile)
+            if key not in mats:  # the storage depends on (rpb, nnz_tile) only
+                mats[key] = prepare(A, "ell", sched, device=DEVICE)
+            mat = mats[key]
+            y_k = ell_spmm(mat.data, mat.cols, X, sched)
+            torch.cuda.synchronize()  # a fault during the run surfaces here
+            yk = y_k[:n_rows].cpu().numpy()
+            yp = ell_spmm_plain(mat.data, mat.cols, X, sched)[:n_rows].cpu().numpy()
+            err, err_host, tol = scaled_err(yk, yp), scaled_err(yk, ref64), tol_of(sched)
+            if not (yk.shape == (n_rows, k) and np.isfinite(yk).all()
+                    and err <= tol and err_host <= tol):
+                raise AssertionError(
+                    f"spmm kernel disagrees on {case['name']} k={k} at {sched}: vs plain "
+                    f"{err:.3e}, vs host float64 {err_host:.3e}, tolerance {tol:.0e}")
+            worst = max(worst, err)
+            tag = sched_tag(sched) + ("_par" if sched.dimension_semantics == "parallel" else "")
+            cell = {"err_vs_plain": err, "err_vs_host": err_host}
+            if k == 1:  # B8 at one right-hand side is B2's product
+                y2 = ell_spmv(mat.data, mat.cols, X[:, 0].contiguous(), sched)[:n_rows]
+                y2 = y2.cpu().numpy()
+                cell["err_vs_b2"] = scaled_err(yk[:, 0], y2)
+                cell["equal_to_b2"] = bool(np.array_equal(yk[:, 0], y2))
+                if cell["err_vs_b2"] > (1e-6 if sched.accum_dtype == "float32" else 3e-2):
+                    raise AssertionError(f"B8 at k = 1 differs from B2: {cell} at {sched}")
+            row["by_schedule"][tag] = cell
+            if sched != time_schedule:
+                continue
+            if "Y_engine" in case:  # the engine's four per-token SpMVs
+                row["err_vs_engine"] = scaled_err(yk, case["Y_engine"])
+                if row["err_vs_engine"] > 1e-4:
+                    raise AssertionError(f"B8 differs from the engine's SpMVs: {row}")
+            R, W = mat.data.shape
+            need, stored, _ = padded_needs("ell", mat)
+            nbytes = need + n_cols * k * 4 + n_rows * k * 4
+            padded = stored + n_cols * k * 4 + R * k * 4  # every slot of the planes
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * row["nnz"] * k / FP32_FLOPS
+            csr = prepare(A, "csr", device=DEVICE)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "sparse CSR is beta" notice
+                lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                              size=csr.shape, device=DEVICE)
+                row["library_err"] = scaled_err((lib @ X).cpu().numpy(), ref64)
+                row["library_ms"] = timed(lambda: lib @ X)
+            cols = [X[:, j].contiguous() for j in range(k)]
+            row.update({
+                "schedule": sched_tag(sched), "width": W,
+                "ms": timed(lambda: ell_spmm(mat.data, mat.cols, X, sched)),
+                "plain_ms": timed(lambda: ell_spmm_plain(mat.data, mat.cols, X, sched), reps=5),
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                "padded_bytes": padded, "padded_bound_ms": 1e3 * padded / HBM_BYTES_PER_S,
+                "b1_per_vector_ms": timed(lambda: [csr_spmv(csr.data, csr.indices, csr.indptr,
+                                                            c, sched) for c in cols]),
+                "library": "torch.sparse_csr_tensor(A) @ X"})
+            if row["library_err"] > 1e-4:
+                raise AssertionError(f"library SpMM wrong: {row}")
+        rows.append(row)
+    return {"rows": rows, "max_abs_err": worst, "mats": mats}
+
+
+def spmm_cases(rim: np.ndarray, tick: dict) -> list[dict]:
+    """rim at every k of SPMM_KS; each FFN_CHECK matrix (A = W.T) at k = 4
+    with the decode tick's four token vectors, and at k = 16."""
+    rng = np.random.default_rng(SEED + 51)
+    cases = [{"name": "rim", "A": rim, "x_kind": "random",
+              "X": rng.normal(size=(rim.shape[1], k)).astype(np.float32)} for k in SPMM_KS]
+    for n, t in tick.items():
+        A = np.ascontiguousarray(t["A"])
+        for k in FFN_KS:
+            case = {"name": n, "A": A}
+            if k == t["X"].shape[1]:
+                case.update(X=t["X"].cpu().numpy(), x_kind="decode tick",
+                            Y_engine=t["Y"].cpu().numpy())
+            else:
+                case.update(X=rng.normal(size=(A.shape[1], k)).astype(np.float32),
+                            x_kind="random")
+            cases.append(case)
+    return cases
+
+
+def run_spmm_phase(cases: list[dict]) -> tuple[dict, dict]:
+    """Check B8 (``check_spmm``), then drive the public entry point
+    ``ops.spmm(prepare(A, "ell", schedule), X)`` once per case with the
+    counters at 0: the main path of B8. Returns (entry, launches)."""
+    checked = check_spmm(cases)
+    mats = checked.pop("mats")
+    reset_launches()
+    for case in cases:
+        mat = mats[(case["name"], DEFAULT_SCHEDULE.rows_per_block, DEFAULT_SCHEDULE.nnz_tile)]
+        Y = spmm(mat, case["X"], DEFAULT_SCHEDULE).cpu().numpy()
+        ref = case["A"].astype(np.float64) @ case["X"].astype(np.float64)
+        if not (Y.shape == ref.shape and scaled_err(Y, ref) <= 1e-4):
+            raise AssertionError(f"ops.spmm wrong on {case['name']} k={case['X'].shape[1]}")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches["spmm"] != len(cases) or sum(launches.values()) != len(cases):
+        raise AssertionError(f"spmm main path launches: {launches}")
+    rows = checked["rows"]
+    head = next(r for r in rows if r["x"] == "decode tick" and r["matrix"] == FFN_CHECK[0])
+    entry = {k: head[k] for k in ("matrix", "shape", "nnz", "k", "schedule", "width", "ms",
+                                  "plain_ms", "bound_ms", "bound_by", "bytes", "padded_bytes",
+                                  "padded_bound_ms", "library_ms", "library",
+                                  "b1_per_vector_ms")}
+    entry.update(x="the decode tick's four token vectors", max_abs_err=checked["max_abs_err"],
+                 tolerance={"float32": 1e-4, "bfloat16": 3e-2}, cases=rows)
+    return entry, launches
+
+
 def check_launches(phase: str, got: dict, want: dict) -> None:
     bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
     if bad:
@@ -949,6 +1450,8 @@ def main() -> None:
 
     unregister_format("bcsr")
     for fmt in KERNEL_ORDER:
+        if fmt == "spmm":
+            continue  # checked in its own phase, on the LM's FFN matrices
         if fmt == "spmspv":
             checked[fmt] = check_spmspv(extra["webgraph"], web_schedule)
         else:
@@ -1166,6 +1669,26 @@ def main() -> None:
         launches[k] += got[k]
     torch.cuda.empty_cache()
     emit("solve", seconds=time.perf_counter() - t0, **solved)
+
+    # ---- lm: sparse LM serving of qwen3-0.6b at its published width (B1) --
+    t0 = time.perf_counter()
+    lm, got, tick = run_lm_phase(get_config(LM_ARCH))
+    for k in launches:
+        launches[k] += got[k]
+    # most of B1's launches are the decode's: its numbers at that shape too
+    checked["csr"]["at_lm_ffn"] = lm["checks"]["b1_ffn"][0]
+    torch.cuda.empty_cache()
+    emit("lm", seconds=time.perf_counter() - t0, **lm)
+
+    # ---- spmm: kernel B8 through ops.spmm, on rim and the LM's own FFNs ---
+    t0 = time.perf_counter()
+    checked["spmm"], got = run_spmm_phase(spmm_cases(pool["rim"], tick))
+    checked["spmm"]["registers"] = registers.get(SOURCE["spmm"])
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("spmm", seconds=time.perf_counter() - t0, launches=got,
+         cases=checked["spmm"]["cases"])
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for the paper's compute hot-spot: the SpMV
 kernel itself (CSR / ELL / BELL / SELL, the BCSR plugin's ``bcsr.py``),
-schedule-parameterized by the Auto-SpMV compile-time mode, and the fused
-single-launch partitioned kernel (``fused.py``) and the sparse-input-vector
-SpMSpV kernel (``spmspv.py``). ``ops.py`` is the public
+schedule-parameterized by the Auto-SpMV compile-time mode, the fused
+single-launch partitioned kernel (``fused.py``), the sparse-input-vector
+SpMSpV kernel (``spmspv.py``) and the ELL SpMM kernel (``ell.py``,
+``ops.spmm``). ``ops.py`` is the public
 wrapper; each kernel module holds its launch wrapper beside a plain PyTorch
 version; ``ref.py`` holds the plain-torch oracles; ``build.py`` compiles
 ``../csrc`` at first use."""
@@ -37,6 +38,7 @@ from repro_torch.kernels.ops import (
     matrix_fingerprint,
     prepare,
     set_kernel_memo_limit,
+    spmm,
     spmspv,
     spmv,
 )
@@ -69,6 +71,7 @@ __all__ = [
     "prepare",
     "resolve_device",
     "set_kernel_memo_limit",
+    "spmm",
     "spmspv",
     "spmv",
 ]

@@ -70,6 +70,19 @@ def spmv(
     return spec_for(mat).spmv(mat, x, schedule)
 
 
+def spmm(mat: Any, X, schedule: KernelSchedule = DEFAULT_SCHEDULE) -> torch.Tensor:
+    """Multi-vector SpMV ``Y = A @ X`` with ``X: (n_cols, k)`` (a tensor or a
+    host array), on the container's device; returns ``Y: (n_rows, k)``.
+    ELL only, as in the reference (the MoE-dispatch shape)."""
+    from repro_torch.kernels.ell import ell_spmm
+    from repro_torch.sparse.formats import ELL
+
+    if not isinstance(mat, ELL):
+        raise TypeError("spmm currently supports ELL")
+    X = torch.as_tensor(X, dtype=torch.float32, device=mat.data.device).contiguous()
+    return ell_spmm(mat.data, mat.cols, X, schedule)[: mat.shape[0]]
+
+
 def spmspv(
     mat, active: np.ndarray, xvals: np.ndarray, schedule: KernelSchedule = DEFAULT_SCHEDULE
 ) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.sparse.spmv import (  # noqa: F401  (re-exported oracles)
+    spmm_ell,
     spmv,
     spmv_bell,
     spmv_csr,
@@ -26,3 +27,10 @@ def spmv_dense(dense: np.ndarray, x, *, device=None) -> torch.Tensor:
     device = resolve_device(device)
     a = torch.as_tensor(np.asarray(dense), dtype=torch.float32, device=device)
     return a @ torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def spmm_dense(dense: np.ndarray, X, *, device=None) -> torch.Tensor:
+    """Ground truth of SpMM: dense product (float32) on ``device``."""
+    device = resolve_device(device)
+    a = torch.as_tensor(np.asarray(dense), dtype=torch.float32, device=device)
+    return a @ torch.as_tensor(X, dtype=torch.float32, device=device)

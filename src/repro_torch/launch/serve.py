@@ -1,19 +1,32 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --spmv
-[--spmv-cache tuning.json] [--device cuda|cpu] [--partition [--max-blocks K]
-[--fused]] [--format-plugins repro_torch.sparse.bcsr]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>
+[--lm-sparse] [--device cuda|cpu]`` (LM mode) or ``python -m
+repro_torch.launch.serve --spmv [--spmv-cache tuning.json] [--device
+cuda|cpu] [--partition [--max-blocks K] [--fused]] [--format-plugins
+repro_torch.sparse.bcsr]`` (SpMV mode). Kernels run on ``--device``
+(default ``cuda``; the launcher raises when the card is absent rather than
+serving from the CPU).
 
-Runs the multi-matrix Auto-SpMV pipeline: synthetic traffic drawn from the
-paper's matrix suite (with repeats, as real solver fleets resubmit the same
-systems) flows through an ``AutoSpmvSession``-backed ``SpmvServer`` whose
-kernels run on ``--device`` (default ``cuda``; the launcher raises when the
-card is absent rather than serving from the CPU). With ``--spmv-cache`` the
-tuning decisions persist to JSON, so a relaunched server starts warm and
-skips the predictor inferences. ``--partition`` serves per-matrix
-composite plans over nnz-balanced row blocks (``--fused``: one launch per
-request); ``--format-plugins`` imports modules that register extra formats.
+LM mode runs the slot-batched ``BatchedServer`` on synthetic requests with
+the architecture's reduced config, as the reference launcher does (full
+width is driven through the public functions, e.g. by ``chip_smoke.py``).
+With ``--lm-sparse`` every FFN weight is magnitude-pruned to
+``--lm-density`` and registered with a ``SparseInferenceEngine``: each
+decode token then goes through session-planned SpMV kernels (the CSR kernel
+of compile-time mode). ``--slo`` stamps an SLO class on every request
+(``mixed`` cycles all four); ``--summary-export`` writes the server summary
+as JSON.
 
-The reference launcher's LM mode and its telemetry, SLO, anomaly and fleet
-flags belong to later slices of the port.
+SpMV mode runs the multi-matrix Auto-SpMV pipeline: synthetic traffic drawn
+from the paper's matrix suite (with repeats, as real solver fleets resubmit
+the same systems) flows through an ``AutoSpmvSession``-backed
+``SpmvServer``. With ``--spmv-cache`` the tuning decisions persist to JSON,
+so a relaunched server starts warm and skips the predictor inferences.
+``--partition`` serves per-matrix composite plans over nnz-balanced row
+blocks (``--fused``: one launch per request); ``--format-plugins`` imports
+modules that register extra formats.
+
+The reference launcher's telemetry, SLO-tracking (``--slo-config``),
+anomaly and fleet flags belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -23,14 +36,97 @@ import time
 
 import numpy as np
 
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.session import AutoSpmvSession, build_tuner
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import init_params, model_specs
 from repro_torch.sparse.generate import MATRIX_NAMES, generate_by_name
 from repro_torch.sparse.registry import default_format, format_names
-from repro_torch.train.serve import SpmvRequest, SpmvServer
+from repro_torch.train.serve import (
+    BatchedServer,
+    Request,
+    ServeConfig,
+    SpmvRequest,
+    SpmvServer,
+)
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("launch.serve")
+
+
+def _build_lm_engine(args, cfg, params, device):
+    """Stand up the sparse serving stack: a cheap tuner + shared session +
+    one ``SparseInferenceEngine`` holding the magnitude-pruned FFN weights.
+    Returns (engine, pruned params)."""
+    from repro_torch.models.sparse_linear import SparseInferenceEngine, prune_model_ffns
+
+    t0 = time.time()
+    tuner = build_tuner(
+        scale=0.0008, names=MATRIX_NAMES[:4], n_extra=0, fit_overhead=False, device=device
+    )
+    log.info("lm-sparse tuner ready in %.1fs", time.time() - t0)
+    session = AutoSpmvSession(tuner)
+    engine = SparseInferenceEngine(session)
+    pruned = prune_model_ffns(params, cfg, engine, density=args.lm_density)
+    log.info(
+        "lm-sparse: %d FFN matrices registered (%d SpMV-eligible) at density %.3f",
+        engine.stats.registered, engine.stats.spmv_layers, args.lm_density,
+    )
+    return engine, pruned
+
+
+def serve_lm(args) -> list[Request]:
+    from repro_torch.models.sparse_linear import SLO_PRIORITY
+
+    if args.slo_config:
+        raise NotImplementedError(
+            "--slo-config needs the SLO tracker (obs/slo.py), a later slice of the "
+            "port (see ROADMAP.md); the reference launcher serves it"
+        )
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced_config=True)
+    if cfg.prefix_len:
+        cfg = cfg.replace(prefix_len=0, prefix_lm=False)  # text-only serving demo
+    engine = None
+    gen =torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=device)
+    if args.lm_sparse:
+        engine, params = _build_lm_engine(args, cfg, params, device)
+    server = BatchedServer(
+        params, cfg,
+        ServeConfig(batch_slots=args.slots, max_len=args.max_len,
+                    max_new_tokens=args.max_new_tokens),
+        engine=engine,
+    )
+    rng = np.random.default_rng(args.seed)
+    reqs = [
+        Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 17))).tolist(),
+            max_new_tokens=args.max_new_tokens,
+            slo=SLO_PRIORITY[i % len(SLO_PRIORITY)] if args.slo == "mixed" else args.slo,
+        )
+        for i in range(args.requests)
+    ]
+    done = server.run(reqs)
+    for r in done:
+        log.info("req %d [%s]: prompt %d toks -> %s", r.rid, r.slo, len(r.prompt), r.generated)
+    tput = sum(len(r.generated) for r in done) / max(done[0].latency_s, 1e-9)
+    log.info("aggregate throughput: %.1f tok/s over %d requests", tput, len(done))
+    summary = server.summary()
+    log.info("server summary: %s", summary)
+    if args.summary_export:
+        import json
+
+        from repro_torch.utils.io import atomic_write_text
+
+        atomic_write_text(
+            args.summary_export, json.dumps(summary, indent=1, default=float)
+        )
+        log.info("summary -> %s", args.summary_export)
+    return done
 
 
 def serve_spmv(args) -> list[SpmvRequest]:
@@ -116,10 +212,31 @@ def serve_spmv(args) -> list[SpmvRequest]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default=None, choices=sorted(ARCH_IDS),
+                    help="LM mode: model architecture to serve (reduced config)")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-sparse", action="store_true",
+                    help="LM mode: magnitude-prune the FFN weights and route "
+                         "their matmuls through session-planned SpMV kernels "
+                         "(models/sparse_linear.py)")
+    ap.add_argument("--lm-density", type=float, default=0.05,
+                    help="with --lm-sparse: kept-weight fraction per FFN matrix")
+    ap.add_argument("--slo", default="latency-critical",
+                    choices=["latency-critical", "power-capped", "balanced",
+                             "energy-saving", "mixed"],
+                    help="LM mode: the SLO class stamped on every request "
+                         "('mixed' cycles all four across the request stream)")
+    ap.add_argument("--slo-config", default=None,
+                    help="SLO tracker targets (not ported yet: raises)")
+    ap.add_argument("--summary-export", default=None,
+                    help="LM mode: write the server summary (SLO mix, engine "
+                         "plans, energy cells) as JSON here")
     ap.add_argument("--spmv", action="store_true",
                     help="serve SpMV traffic through an AutoSpmvSession")
-    ap.add_argument("--requests", type=int, default=6)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the kernels run: 'cuda' (default; raises when "
                          "no card is present) or 'cpu' (plain PyTorch versions)")
@@ -153,9 +270,11 @@ def main(argv=None):
                     help="instance label stamped into exported shards")
     args = ap.parse_args(argv)
 
-    if not args.spmv:
-        ap.error("--spmv is required: the LM serving mode is not ported yet")
-    return serve_spmv(args)
+    if args.spmv:
+        return serve_spmv(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --spmv is given")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,255 @@
+"""Shared transformer layers: RMSNorm, RoPE, chunked-flash GQA attention,
+gated FFNs. Plain functions over param trees (models/param.py).
+
+Attention is written flash-style in PyTorch: over ``attn_chunk`` the KV axis
+is processed chunk by chunk (a Python loop) with a running (max,
+denominator, accumulator) carry, bounding the transient to S*chunk instead
+of S^2. It is not a kernel of the reference either (plain ``jnp`` there), so
+plain PyTorch is its port. Casts mirror the reference: norms and softmax in
+float32, RoPE in float32 and cast back, products in ``compute_dtype``.
+
+The reference pins intermediate layouts to a device mesh with
+``dist.partition.hint``; without a mesh that is the identity, so the port
+drops it until the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.param import ParamSpec, torch_dtype
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- norms
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), (None,), init="ones")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------- RoPE
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (B, T, H, dh); positions: (B, T) or (1, T)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].float() * freqs  # (B, T, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------- flash attention
+def _mask(q_pos, kv_pos, kv_valid, *, window: int, prefix_len: int):
+    """(B, Tq, C) boolean mask from positions.
+
+    causal always; ``window`` > 0 limits lookback; ``prefix_len`` > 0 makes
+    keys inside the prefix visible to every query (prefix-LM)."""
+    qp = q_pos[:, :, None]  # (B, Tq, 1)
+    kp = kv_pos[:, None, :]  # (B, 1, C)
+    ok = kp <= qp
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    if prefix_len > 0:
+        ok = ok | (kp < prefix_len)
+    return ok & kv_valid[:, None, :]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    kv_valid: torch.Tensor,
+    window: int = 0,
+    prefix_len: int = 0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """q: (B,Tq,H,dh); k/v: (B,S,H,dh) (kv heads already repeated to H).
+    Returns (B,Tq,H,dh)."""
+    B, Tq, H, dh = q.shape
+    S = k.shape[1]
+    scale = dh**-0.5
+    qf = q.float() * scale
+
+    if Tq == 1 or S <= chunk:
+        # single-block path (decode, short sequences)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+        m = _mask(q_pos, kv_pos, kv_valid, window=window, prefix_len=prefix_len)
+        scores = torch.where(m[:, None, :, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+        return out.to(q.dtype)
+
+    if S % chunk:
+        # pad the KV axis to the chunk quantum; padded slots are invalid
+        pad = chunk - S % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad))
+        kv_valid = F.pad(kv_valid, (0, pad))
+        S += pad
+    m_run = torch.full((B, H, Tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Tq, dh), dtype=torch.float32, device=q.device)
+    for c0 in range(0, S, chunk):
+        k_c, v_c = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf, k_c.float())
+        msk = _mask(q_pos, kv_pos[:, c0 : c0 + chunk], kv_valid[:, c0 : c0 + chunk],
+                    window=window, prefix_len=prefix_len)[:, None, :, :]
+        scores = torch.where(msk, scores, NEG_INF)
+        m_new = torch.maximum(m_run, scores.amax(dim=-1))
+        p = torch.where(msk, torch.exp(scores - m_new[..., None]), 0.0)
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v_c.float())
+        m_run = m_new
+    out = torch.where(
+        l_run[..., None] > 0, acc / torch.clamp(l_run[..., None], min=1e-30), 0.0
+    )
+    return out.permute(0, 2, 1, 3).to(q.dtype)  # (B,Tq,H,dh)
+
+
+# ------------------------------------------------------------- GQA attention
+def attention_specs(cfg: ModelConfig) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, h, dh), ("embed", "heads", None)),
+        "wk": ParamSpec((d, kv, dh), ("embed", "kv", None)),
+        "wv": ParamSpec((d, kv, dh), ("embed", "kv", None)),
+        "wo": ParamSpec((h, dh, d), ("heads", None, "embed")),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = rmsnorm_spec(dh)
+        specs["k_norm"] = rmsnorm_spec(dh)
+    return specs
+
+
+def qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The projected, normed and rotated q, k, v of ``x``: (B, T, heads, dh)."""
+    cd = torch_dtype(cfg.compute_dtype)
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(cd))
+    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(cd))
+    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(cd))
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def repeat_kv(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """KV heads repeated to the full head count (GQA)."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    return torch.repeat_interleave(t, n_rep, dim=2) if n_rep > 1 else t
+
+
+def attention(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+    window: int = 0,
+) -> tuple[torch.Tensor, dict | None]:
+    """x: (B, T, D); positions: (B, T). With ``cache`` (decode), writes the
+    new K/V at ``positions`` and attends over the cache. The cache passed in
+    is left as it was: the update goes into a copy, which is returned."""
+    B, T, _ = x.shape
+    cd = torch_dtype(cfg.compute_dtype)
+    q, k, v = qkv(params, x, cfg, positions)
+
+    if cache is None:
+        kv_pos = positions
+        kv_valid = torch.ones((B, T), dtype=torch.bool, device=x.device)
+        k_all, v_all = k, v
+        new_cache = None
+    else:
+        # scatter this step's K/V into the cache at `positions`
+        S = cache["k"].shape[1]
+        b_idx = torch.arange(B, device=x.device)[:, None]
+        pos = positions.long()
+        k_all, v_all = cache["k"].clone(), cache["v"].clone()
+        k_all[b_idx, pos] = k.to(k_all.dtype)
+        v_all[b_idx, pos] = v.to(v_all.dtype)
+        new_cache = {"k": k_all, "v": v_all}
+        kv_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        kv_valid = kv_pos <= positions[:, -1:]
+        k_all = k_all.to(cd)
+        v_all = v_all.to(cd)
+
+    out = flash_attention(
+        q,
+        repeat_kv(k_all, cfg),
+        repeat_kv(v_all, cfg),
+        q_pos=positions,
+        kv_pos=kv_pos,
+        kv_valid=kv_valid,
+        window=window,
+        prefix_len=cfg.prefix_len if cfg.prefix_lm else 0,
+        chunk=cfg.attn_chunk,
+    )
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(cd))
+    return y, new_cache
+
+
+def attention_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    spec = ParamSpec((batch, max_len, kv, dh), ("batch", "kv_seq", "kv", None), init="zeros")
+    return {"k": spec, "v": spec}
+
+
+# ------------------------------------------------------------------ MLP / FFN
+def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {
+            "w_up": ParamSpec((d, f), ("embed", "ffn")),
+            "w_down": ParamSpec((f, d), ("ffn", "embed")),
+        }
+    return {
+        "w_gate": ParamSpec((d, f), ("embed", "ffn")),
+        "w_up": ParamSpec((d, f), ("embed", "ffn")),
+        "w_down": ParamSpec((f, d), ("ffn", "embed")),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
+
+
+def mlp(
+    params: dict, x: torch.Tensor, cfg: ModelConfig, *, engine=None, name: str = ""
+) -> torch.Tensor:
+    """Gated/gelu FFN. With ``engine`` (an ``EngineHandle`` from
+    models/sparse_linear.py) every matmul dispatches through the sparse
+    inference engine under the key ``{name}.mlp.<w>`` — planned SpMV kernels
+    for registered pruned weights, dense contraction otherwise."""
+    cd = torch_dtype(cfg.compute_dtype)
+
+    def mm(key, h, w):
+        w = w.to(cd)
+        if engine is None:
+            return torch.einsum("btd,df->btf", h, w)
+        return engine.matmul(f"{name}.mlp.{key}", h, w)
+
+    if cfg.mlp_kind == "gelu":
+        h = _gelu(mm("w_up", x, params["w_up"]))
+        return mm("w_down", h, params["w_down"])
+    act = F.silu if cfg.mlp_kind == "swiglu" else _gelu
+    g = act(mm("w_gate", x, params["w_gate"]))
+    u = mm("w_up", x, params["w_up"])
+    return mm("w_down", g * u, params["w_down"])

@@ -1,0 +1,336 @@
+"""Decoder-only LM assembly over the block vocabulary.
+
+Layer layout = optional ``first_blocks`` + ``pattern`` repeated
+``n_groups`` times (params stacked on a leading group axis, walked by a
+Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds
+``"attn"`` and ``"local"`` are ported; ``"moe"``, ``"rec"``, ``"mlstm"``
+and ``"slstm"`` raise ``NotImplementedError`` (ROADMAP queue A, item 6).
+
+Three entry points: ``forward`` (full sequence, no cache), ``prefill``
+(fills the serving cache over a full prompt) and ``decode_step`` (one
+token). They return fresh caches; the caches passed in are not modified.
+The reference's ``remat`` (activation checkpointing) is a training concern
+with no effect on these inference passes, and is not read here.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    attention,
+    attention_cache_spec,
+    attention_specs,
+    flash_attention,
+    mlp,
+    mlp_specs,
+    qkv,
+    repeat_kv,
+    rmsnorm,
+    rmsnorm_spec,
+)
+from repro_torch.models.param import ParamSpec, init_params, stack_specs, torch_dtype, tree_map
+
+_LATER = {
+    "moe": "the MoE layer (models/moe.py) and its engine path",
+    "rec": "the recurrent blocks (models/recurrent.py)",
+    "mlstm": "the recurrent blocks (models/recurrent.py)",
+    "slstm": "the recurrent blocks (models/recurrent.py)",
+}
+
+
+def _not_ported(kind: str):
+    if kind in _LATER:
+        return NotImplementedError(
+            f"block kind {kind!r} needs {_LATER[kind]}, a later slice of the port "
+            "(ROADMAP.md queue A, item 6); the reference package serves it"
+        )
+    return ValueError(f"unknown block kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    d = cfg.d_model
+    if kind in ("attn", "local"):
+        return {
+            "ln1": rmsnorm_spec(d),
+            "attn": attention_specs(cfg),
+            "ln2": rmsnorm_spec(d),
+            "mlp": mlp_specs(cfg),
+        }
+    raise _not_ported(kind)
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    d, v = cfg.d_model, cfg.vocab_size
+    specs: dict[str, Any] = {
+        "embed": ParamSpec((v, d), ("vocab", "embed"), scale=1.0),
+        "head": tuple(block_specs(cfg, k) for k in cfg.first_blocks),
+        "groups": tuple(
+            stack_specs(block_specs(cfg, k), cfg.n_groups) for k in cfg.pattern
+        )
+        if cfg.n_groups
+        else (),
+        "tail": tuple(block_specs(cfg, k) for k in cfg.tail_blocks),
+        "final_norm": rmsnorm_spec(d),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, v), ("embed", "vocab"))
+    return specs
+
+
+def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int):
+    if kind == "attn":
+        return attention_cache_spec(cfg, batch, max_len)
+    if kind == "local":
+        w = min(cfg.window, max_len)
+        spec = attention_cache_spec(cfg, batch, w)
+        spec["pos"] = ParamSpec((batch, w), ("batch", None), init="zeros", dtype="int32")
+        return spec
+    raise _not_ported(kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    return {
+        "head": tuple(block_cache_spec(cfg, k, batch, max_len) for k in cfg.first_blocks),
+        "groups": tuple(
+            stack_specs(block_cache_spec(cfg, k, batch, max_len), cfg.n_groups)
+            for k in cfg.pattern
+        )
+        if cfg.n_groups
+        else (),
+        "tail": tuple(block_cache_spec(cfg, k, batch, max_len) for k in cfg.tail_blocks),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """A fresh serving cache on ``device`` (``None`` = the card): attention
+    K/V and ring positions start at zeros."""
+    return init_params(cache_specs(cfg, batch, max_len), None, "float32", device)
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _local_attention(params, x, cfg, *, positions, cache):
+    """Windowed attention; ring cache of width W on the serve path."""
+    if cache is None:
+        y, _ = attention(params, x, cfg, positions=positions, cache=None, window=cfg.window)
+        return y, None
+    # ring cache: keep the last W tokens' K/V with absolute positions
+    B, T, _ = x.shape
+    W = cache["k"].shape[1]
+    cd = torch_dtype(cfg.compute_dtype)
+    q, k, v = qkv(params, x, cfg, positions)
+    keep = min(W, T)
+    slots = (positions[:, -keep:] % W).long()
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    k_all, v_all, pos_all = cache["k"].clone(), cache["v"].clone(), cache["pos"].clone()
+    k_all[b_idx, slots] = k[:, -keep:].to(k_all.dtype)
+    v_all[b_idx, slots] = v[:, -keep:].to(v_all.dtype)
+    pos_all[b_idx, slots] = positions[:, -keep:].to(torch.int32) + 1
+    new_cache = {"k": k_all, "v": v_all, "pos": pos_all}
+    if T > 1:
+        # prefill: attend within the prompt itself (windowed)
+        y, _ = attention(params, x, cfg, positions=positions, cache=None, window=cfg.window)
+        return y, new_cache
+    out = flash_attention(
+        q,
+        repeat_kv(k_all.to(cd), cfg),
+        repeat_kv(v_all.to(cd), cfg),
+        q_pos=positions,
+        kv_pos=pos_all - 1,
+        kv_valid=pos_all > 0,
+        window=cfg.window,
+        chunk=cfg.attn_chunk,
+    )
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(cd))
+    return y, new_cache
+
+
+def apply_block(
+    kind: str,
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: dict | None,
+    engine=None,
+    name: str = "",
+):
+    """Returns (x, new_cache).
+
+    ``engine``/``name`` route this block's FFN matmuls through the sparse
+    inference engine (models/sparse_linear.py) under ``{name}.mlp.*`` keys;
+    attention stays dense. (The reference also returns the MoE auxiliary
+    loss and expert counts per block, which are zero for these kinds;
+    ``forward``/``prefill`` return them summed, as zeros.)"""
+    if kind == "attn":
+        a, new_cache = attention(
+            params["attn"], rmsnorm(x, params["ln1"]), cfg,
+            positions=positions, cache=cache, window=0,
+        )
+    elif kind == "local":
+        a, new_cache = _local_attention(
+            params["attn"], rmsnorm(x, params["ln1"]), cfg, positions=positions, cache=cache
+        )
+    else:
+        raise _not_ported(kind)
+    x = x + a
+    y = mlp(params["mlp"], rmsnorm(x, params["ln2"]), cfg, engine=engine, name=name)
+    return x + y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# model entry points
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg, tokens=None, embeds=None, prefix_embeds=None):
+    cd = torch_dtype(cfg.compute_dtype)
+    if embeds is not None:
+        x = embeds.to(cd)
+    else:
+        x = params["embed"][tokens.long()].to(cd)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cd), x], dim=1)
+    return x
+
+
+def _zero_aux(cfg, device) -> dict:
+    """The reference's MoE auxiliaries, zero for the ported block kinds."""
+    return {
+        "moe_aux": torch.zeros((), dtype=torch.float32, device=device),
+        "tokens_per_expert": torch.zeros(max(cfg.n_experts, 1), dtype=torch.float32, device=device),
+    }
+
+
+def _logits(params, cfg, x):
+    h = rmsnorm(x, params["final_norm"])
+    if cfg.tie_embeddings:
+        logits = torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype))
+    else:
+        logits = torch.einsum("btd,dv->btv", h, params["lm_head"].to(h.dtype))
+    logits = logits.float()
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None):
+    if engine is not None and cfg.n_groups and not unroll_layers:
+        # the reference's group scan cannot hold per-layer host-planned
+        # kernels; the port keeps its contract so callers behave the same
+        raise ValueError(
+            "a sparse inference engine dispatches per-layer host-planned "
+            "kernels, which cannot live inside the group scan over stacked "
+            "params — call with unroll_layers=True to serve sparse"
+        )
+    new_cache: dict[str, list] = {"head": [], "groups": [], "tail": []}
+
+    def run_list(kinds, plist, clist, x, out_key):
+        for i, (kind, p, c) in enumerate(zip(kinds, plist, clist)):
+            x, nc = apply_block(kind, p, x, cfg, positions=positions, cache=c,
+                                engine=engine, name=f"{out_key}{i}")
+            new_cache[out_key].append(nc)
+        return x
+
+    head_caches = cache["head"] if cache else [None] * len(cfg.first_blocks)
+    x = run_list(cfg.first_blocks, params["head"], head_caches, x, "head")
+
+    for pi, kind in enumerate(cfg.pattern if cfg.n_groups else ()):
+        pstack = params["groups"][pi]
+        cstack = cache["groups"][pi] if cache else None
+        ncs = []
+        for g in range(cfg.n_groups):
+            p_g = tree_map(lambda a: a[g], pstack)
+            c_g = tree_map(lambda a: a[g], cstack) if cstack is not None else None
+            x, nc = apply_block(kind, p_g, x, cfg, positions=positions, cache=c_g,
+                                engine=engine, name=f"g{pi}x{g}")
+            ncs.append(nc)
+        new_cache["groups"].append(
+            tree_map(lambda *a: torch.stack(a), *ncs) if cache else None
+        )
+
+    tail_caches = cache["tail"] if cache else [None] * len(cfg.tail_blocks)
+    x = run_list(cfg.tail_blocks, params["tail"], tail_caches, x, "tail")
+
+    out_cache = (
+        {k: tuple(v) for k, v in new_cache.items()} if cache else None
+    )
+    return x, out_cache
+
+
+def forward(
+    params,
+    cfg: ModelConfig,
+    *,
+    tokens=None,
+    embeds=None,
+    prefix_embeds=None,
+    positions=None,
+    unroll_layers: bool = False,
+    engine=None,
+):
+    """Full sequence, no cache. Returns (logits, aux)."""
+    x = _embed(params, cfg, tokens, embeds, prefix_embeds)
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    x, _ = _run_blocks(params, cfg, x, positions=positions, cache=None,
+                       unroll_layers=unroll_layers, engine=engine)
+    return _logits(params, cfg, x), _zero_aux(cfg, x.device)
+
+
+def prefill(
+    params,
+    cfg: ModelConfig,
+    cache,
+    *,
+    tokens=None,
+    embeds=None,
+    prefix_embeds=None,
+    unroll_layers: bool = False,
+    engine=None,
+):
+    """Serving prefill: runs the prompt, fills the cache.
+    Returns (logits, cache, aux)."""
+    x = _embed(params, cfg, tokens, embeds, prefix_embeds)
+    B, T, _ = x.shape
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    x, cache = _run_blocks(params, cfg, x, positions=positions, cache=cache,
+                           unroll_layers=unroll_layers, engine=engine)
+    return _logits(params, cfg, x), cache, _zero_aux(cfg, x.device)
+
+
+def decode_step(
+    params,
+    cfg: ModelConfig,
+    cache,
+    tokens,
+    positions,
+    *,
+    unroll_layers: bool = False,
+    engine=None,
+):
+    """One decoding step. tokens: (B, 1) int; positions: (B, 1) int (the
+    absolute index the new token occupies). Returns (logits, cache).
+
+    ``engine`` routes the FFN matmuls through planned SpMV kernels (sparse
+    serving); requires ``unroll_layers=True`` when the config has layer
+    groups, as in the reference."""
+    x = _embed(params, cfg, tokens)
+    x, cache = _run_blocks(params, cfg, x, positions=positions, cache=cache,
+                           unroll_layers=unroll_layers, engine=engine)
+    return _logits(params, cfg, x), cache

@@ -69,3 +69,12 @@ def spmv(mat: SparseFormat, x) -> torch.Tensor:
             raise
         return fn(mat, x)
     return spec.reference(mat, x)
+
+
+def spmm_ell(mat: ELL, X) -> torch.Tensor:
+    """ELL SpMM (multi-vector SpMV, ``X: (n_cols, k)``): gather the rows of
+    X per stored slot, contract the width. Returns ``(R, k)``, padded rows
+    included, as the reference's oracle does."""
+    X = _as_x(X, mat.data)
+    Xg = X[mat.cols.long()]  # (n_rows, width, k)
+    return torch.einsum("rw,rwk->rk", mat.data, Xg)

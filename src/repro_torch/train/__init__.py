@@ -1,3 +1,3 @@
-from repro_torch.train.serve import SpmvRequest, SpmvServer
+from repro_torch.train.serve import BatchedServer, ServeConfig, SpmvRequest, SpmvServer
 
-__all__ = ["SpmvRequest", "SpmvServer"]
+__all__ = ["BatchedServer", "ServeConfig", "SpmvRequest", "SpmvServer"]

@@ -1,4 +1,12 @@
-"""Batched serving: the multi-matrix SpMV pipeline.
+"""Batched serving: LM slot scheduler + the multi-matrix SpMV pipeline.
+
+``BatchedServer``: fixed B decode slots; new requests are admitted by
+prefilling into a free slot (per-slot surgery over the batch-leading cache
+tree), and all occupied slots decode together each step. Greedy sampling.
+With a ``SparseInferenceEngine`` every decode tick routes its FFN matmuls
+through session-planned SpMV kernels, under the objective of the
+highest-priority SLO class present (paper finding 5: the latency-optimal
+configuration is not the power-optimal one).
 
 ``SpmvServer``: the Auto-SpMV serving pipeline. Every request carries a
 matrix + vector; instead of compiling a kernel inline per request, the
@@ -21,29 +29,247 @@ to the host as a numpy array, which also synchronises the launch, so the
 measured execution time covers the kernel and the copy.
 
 Not in this slice: partitioned serving on the observed (telemetry/adaptive)
-path, SLO tracking, the anomaly watchdog, fleet sync, periodic calibration
-and the metrics HTTP endpoint — asking for one raises
-``NotImplementedError``. The LM ``BatchedServer`` is a later slice.
+path, SLO tracking (``SpmvServer(slo=)``, ``BatchedServer(slo=)``), the
+anomaly watchdog, fleet sync, periodic calibration and the metrics HTTP
+endpoint — asking for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.session import AutoSpmvSession
+from repro_torch.models.model import decode_step, init_cache, prefill
+from repro_torch.models.sparse_linear import SLO_PRIORITY, slo_objective
+from repro_torch.models.param import tree_map
 from repro_torch.obs.energy import EnergyAccountant
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.obs.trace import get_tracer, span as _span
 from repro_torch.sparse.registry import default_format
 from repro_torch.utils.logging import get_logger
+from repro_torch.utils.timing import _block
 
 log = get_logger("serve")
 
 
+@dataclass
+class ServeConfig:
+    batch_slots: int = 4
+    max_len: int = 512
+    max_new_tokens: int = 32
+    objective: str = "latency"  # latency | efficiency (Auto-SpMV objective)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int
+    slo: str = "latency-critical"  # SLO class (models/sparse_linear.py)
+    generated: list[int] = field(default_factory=list)
+    done: bool = False
+    latency_s: float = 0.0
+
+
+class BatchedServer:
+    """Slot-batched LM decode; optionally sparse-served.
+
+    With ``engine`` (a ``SparseInferenceEngine`` over pruned FFN weights)
+    every decode tick routes its FFN matmuls through planned SpMV kernels.
+    Each request carries an SLO class; a shared tick runs under the
+    highest-priority class among the occupied slots (``SLO_PRIORITY``), one
+    decode callable per objective, while the energy accounting keys each
+    request's share of the tick by its *own* class — mixed traffic shows who
+    burned the joules. Prefill stays dense: the weights themselves are
+    pruned, so the prompt pass is numerically identical either way.
+
+    Everything runs on the device the params live on. ``slo=`` (an SLO
+    tracker) belongs to the observability slice and raises.
+    """
+
+    def __init__(
+        self, params: Any, cfg: ModelConfig, sc: ServeConfig, *, engine=None, slo=None,
+    ):
+        if slo is not None:
+            raise NotImplementedError(
+                "BatchedServer(slo=...) needs the SLO tracker (obs/slo.py), a later "
+                "slice of the port (see ROADMAP.md); the reference package serves it"
+            )
+        self.params = params
+        self.cfg = cfg
+        self.sc = sc
+        self.engine = engine
+        self.device = params["embed"].device
+        self.cache = init_cache(cfg, sc.batch_slots, sc.max_len, self.device)
+        self.slot_req: list[Request | None] = [None] * sc.batch_slots
+        self.slot_pos = np.zeros(sc.batch_slots, np.int32)
+        self._decode = lambda p, c, t, pos: decode_step(p, cfg, c, t, pos)
+        # one decode callable per objective, closing over the bound engine
+        # handle (built lazily: mixed traffic may never touch some)
+        self._decode_by_objective: dict[str, Any] = {}
+        self.ticks = 0
+        self.requests_served = 0
+        self._slo_counts: dict[str, int] = {}
+        self.metrics = get_metrics()
+        self.energy = EnergyAccountant(self.metrics)
+
+    # ------------------------------------------------------------ admission
+    def _admit(self, req: Request, slot: int):
+        tokens = torch.as_tensor(np.array(req.prompt, np.int32)[None, :], device=self.device)
+        pc = init_cache(self.cfg, 1, self.sc.max_len, self.device)  # fresh, correct inits
+        logits, pc, _ = prefill(self.params, self.cfg, pc, tokens=tokens)
+        first = int(torch.argmax(logits[0, -1]))
+        req.generated.append(first)
+        # slot surgery: write the prefilled cache into slot `slot`, in place
+        # (the server owns the batch cache; nothing else holds it). The batch
+        # is axis 0 of head/tail leaves and axis 1 of the group-stacked ones;
+        # the reference indexes axis 0 everywhere, which writes a group, not
+        # a slot (ROADMAP.md queue C).
+        for part, axis in (("head", 0), ("groups", 1), ("tail", 0)):
+            tree_map(lambda c, p, a=axis: c.select(a, slot).copy_(p.select(a, 0)),
+                     self.cache[part], pc[part])
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = len(req.prompt)
+        if self.engine is not None:
+            slo_objective(req.slo)  # validate the class at admission
+            self._slo_counts[req.slo] = self._slo_counts.get(req.slo, 0) + 1
+            self.metrics.counter("lm_requests_total", slo=req.slo).inc()
+        log.info("admitted request %d into slot %d (prompt %d tokens)", req.rid, slot, len(req.prompt))
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    # ---------------------------------------------------------------- decode
+    def _tick_objective(self) -> str:
+        """The paper objective this tick decodes under: the highest-priority
+        SLO class among the occupied slots wins the shared batch."""
+        active = {r.slo for r in self.slot_req if r is not None}
+        for slo in SLO_PRIORITY:
+            if slo in active:
+                return slo_objective(slo)
+        return self.sc.objective
+
+    def _decode_for(self, objective: str):
+        fn = self._decode_by_objective.get(objective)
+        if fn is None:
+            # plan every matrix before the first tick under this objective
+            self.engine.plan_all(objective)
+            handle = self.engine.bind(objective)
+            cfg = self.cfg
+            fn = lambda p, c, t, pos: decode_step(  # noqa: E731
+                p, cfg, c, t, pos, unroll_layers=True, engine=handle
+            )
+            self._decode_by_objective[objective] = fn
+        return fn
+
+    def _decode_tick(self):
+        B = self.sc.batch_slots
+        toks = np.zeros((B, 1), np.int32)
+        for i, r in enumerate(self.slot_req):
+            if r is not None:
+                toks[i, 0] = r.generated[-1]
+        toks_t = torch.as_tensor(toks, device=self.device)
+        pos = torch.as_tensor(self.slot_pos[:, None], device=self.device)
+        if self.engine is None:
+            logits, self.cache = self._decode(self.params, self.cache, toks_t, pos)
+        else:
+            objective = self._tick_objective()
+            fn = self._decode_for(objective)
+            t0 = time.perf_counter()
+            logits, self.cache = fn(self.params, self.cache, toks_t, pos)
+            _block(logits)  # the host clock then covers the tick
+            dt = time.perf_counter() - t0
+            self._account_tick(objective, dt)
+        self.ticks += 1
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            r.generated.append(int(nxt[i]))
+            self.slot_pos[i] += 1
+            if self.engine is not None:
+                self.metrics.counter("lm_tokens_total", slo=r.slo).inc()
+            if (
+                len(r.generated) >= r.max_new_tokens
+                or self.slot_pos[i] >= self.sc.max_len - 1
+            ):
+                r.done = True
+                self.slot_req[i] = None
+                self.requests_served += 1
+                log.info("request %d finished (%d tokens)", r.rid, len(r.generated))
+
+    def _account_tick(self, objective: str, dt: float) -> None:
+        """Split one measured tick across the active requests' own SLO
+        classes. Each slot decodes its own token through every planned
+        matrix, so the modeled per-token cost is the full per-pass estimate
+        while the measured wall time is shared."""
+        active = [r for r in self.slot_req if r is not None]
+        if not active:
+            return
+        self.metrics.histogram(
+            "lm_decode_tick_seconds", objective=objective
+        ).observe(dt)
+        fmt = self.engine.format_mix(objective)
+        modeled = self.engine.modeled_objectives(objective)
+        share = dt / len(active)
+        for r in active:
+            self.energy.observe(
+                fmt=fmt,
+                objective=slo_objective(r.slo),
+                measured_s=share,
+                modeled=modeled,
+                block="lm",
+            )
+
+    # ------------------------------------------------------------------- run
+    def run(self, requests: list[Request]) -> list[Request]:
+        pending = list(requests)
+        t0 = time.perf_counter()
+        while pending or any(r is not None for r in self.slot_req):
+            for slot in self._free_slots():
+                if not pending:
+                    break
+                self._admit(pending.pop(0), slot)
+            if any(r is not None for r in self.slot_req):
+                self._decode_tick()
+        for r in requests:
+            r.latency_s = time.perf_counter() - t0
+        return requests
+
+    def summary(self) -> dict:
+        """Serving stats for the CLI dump / CI assertions: SLO class mix,
+        engine plan counts, session amortization counters, energy cells."""
+        out: dict[str, Any] = {
+            "requests": self.requests_served,
+            "ticks": self.ticks,
+            "slo_classes": dict(sorted(self._slo_counts.items())),
+        }
+        if self.engine is not None:
+            out["engine"] = self.engine.summary()
+            out["session"] = self.engine.session.stats.as_dict()
+            cells = self.energy.summary().get("cells", {})
+            if cells:
+                out["energy"] = cells
+            latency: dict[str, dict] = {}
+            for hist in self.metrics.instruments(
+                "histogram", "lm_decode_tick_seconds"
+            ):
+                if not hist.count:
+                    continue
+                labels = dict(hist.labels)
+                latency[labels.get("objective", "")] = hist.as_dict()
+            if latency:
+                out["tick_latency"] = latency
+        return out
+
+
+# --------------------------------------------------------------------- SpMV
 @dataclass
 class SpmvRequest:
     """One SpMV serving request: y = A @ x, tuned for ``objective``."""

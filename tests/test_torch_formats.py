@@ -23,7 +23,7 @@ from torch_port_helpers import (
     to_port,
 )
 
-GEN_PATTERNS = [p for p in ref_generate.PATTERN_NAMES if p != "prunedffn"]
+GEN_PATTERNS = list(ref_generate.PATTERN_NAMES)
 
 
 @pytest.mark.parametrize("pattern", GEN_PATTERNS)
@@ -43,11 +43,13 @@ def test_suite_matrix_bitwise(name):
 
 
 def test_prunedffn_waits_for_its_slice():
-    """The pruned-FFN pattern needs optim.compress, which is not ported yet:
-    it must fail loudly, and it is not one of the paper's 30 names."""
+    """The pruned-FFN pattern needed optim.compress, which the LM slice
+    ported: it now matches the reference bit for bit, and it is still not
+    one of the paper's 30 names."""
     assert "pruned-ffn" not in port_generate.MATRIX_NAMES
-    with pytest.raises(ModuleNotFoundError):
-        port_generate.random_matrix(64, 4.0, "prunedffn", seed=0)
+    a = port_generate.random_matrix(64, 4.0, "prunedffn", seed=0)
+    b = ref_generate.random_matrix(64, 4.0, "prunedffn", seed=0)
+    assert a.tobytes() == b.tobytes()
 
 
 def _dense(pattern, n=140, avg=6.0, seed=9):

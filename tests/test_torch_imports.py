@@ -26,9 +26,20 @@ def _module_names():
     return names
 
 
+# modules of the LM slice; the import checks below cover them with the rest
+LM_MODULES = (
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen3_0_6b",
+    "repro_torch.optim", "repro_torch.optim.compress", "repro_torch.models",
+    "repro_torch.models.param", "repro_torch.models.layers", "repro_torch.models.model",
+    "repro_torch.models.sparse_linear",
+)
+
+
 def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
+    assert set(LM_MODULES) <= set(mods)
+    assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 11
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(PKG.parent)!r})\n"
@@ -60,11 +71,48 @@ def test_no_source_file_imports_jax_or_the_reference_package(path):
         assert not {"jax", "jaxlib", "repro", "triton"} & set(roots), (path, roots)
 
 
+# package -> (reference package, its names the port does not export yet,
+# names only the port exports)
+EXPORTS = {
+    "configs": ({"SHAPES", "SHAPE_NAMES", "WorkloadShape", "applicable", "cells_for"}, set()),
+    "models": ({"abstract_params", "axes_tree"}, {"init_cache", "params_from_numpy"}),
+    "optim": ({"AdamWConfig", "apply_adamw", "compress_gradients", "constant",
+               "cosine_schedule", "init_error_feedback", "init_opt_state", "linear_warmup"},
+              {"magnitude_prune"}),
+    "train": ({"TrainConfig", "Trainer", "make_loss_fn", "make_train_step"},
+              {"SpmvRequest", "SpmvServer"}),
+    "sparse": (set(), set()),
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(EXPORTS))
+def test_package_exports_follow_the_reference(pkg):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    later, own = EXPORTS[pkg]
+    assert set(port.__all__) == (set(ref.__all__) - later) | own
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    for name in later:
+        assert not hasattr(port, name), name  # no silent stand-ins
+
+
+def test_kernels_export_spmm_beside_spmv():
+    import repro.kernels as ref
+    import repro_torch.kernels as port
+
+    assert {"spmm", "spmv", "spmspv"} <= set(port.__all__)
+    assert {"spmm_pallas", "spmv_pallas"} <= set(ref.__all__)
+    assert port.spmm.__module__ == "repro_torch.kernels.ops"
+
+
 def test_cuda_sources_call_no_library_kernel():
     sources = sorted((PKG / "csrc").glob("*.cu*"))
     assert {s.name for s in sources} == {
         "common.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu", "spmv_bell.cu",
-        "spmv_fused.cu", "spmv_bcsr.cu", "spmspv_csc.cu"}
+        "spmv_fused.cu", "spmv_bcsr.cu", "spmspv_csc.cu", "spmm_ell.cu"}
     from repro_torch.kernels.build import KERNEL_SOURCES
 
     assert {f"{n}.cu" for n in KERNEL_SOURCES} == {s.name for s in sources if s.suffix == ".cu"}
@@ -87,9 +135,13 @@ def test_entry_points_without_device_raise_where_cuda_is_absent():
         prepare,
         resolve_device,
     )
-    from repro_torch.kernels.ref import spmv_dense
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import spmm_dense, spmv_dense
     from repro_torch.kernels.spmspv import csc_from_dense
+    from repro_torch.models import init_cache, init_params, model_specs, params_from_numpy
     from repro_torch.sparse import formats
+
+    cfg = get_config("qwen3-0.6b", reduced_config=True)
 
     dense = np.eye(16, dtype=np.float32)
     calls = [
@@ -105,6 +157,10 @@ def test_entry_points_without_device_raise_where_cuda_is_absent():
         lambda: build_tuner(),
         lambda: compile_spmspv(dense),
         lambda: csc_from_dense(dense),
+        lambda: spmm_dense(dense, np.ones((16, 2), np.float32)),
+        lambda: init_params(model_specs(cfg), None, "float32"),
+        lambda: params_from_numpy({"w": dense}),
+        lambda: init_cache(cfg, 1, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -303,6 +303,6 @@ def test_build_tuner_and_cli_on_cpu(clean, tmp_path):
     again = launch_serve.main(argv)  # warm start: every plan comes from the file
     assert all(r.cache_hit for r in again)
     with pytest.raises(SystemExit):
-        launch_serve.main(["--requests", "2"])  # LM mode is not ported
+        launch_serve.main(["--requests", "2"])  # neither --spmv nor --arch
     with pytest.raises(RuntimeError):
         launch_serve.main(["--spmv", "--requests", "2"])  # default device is the card
