@@ -25,7 +25,17 @@ no network. Phases, each printing one JSON object on a line of its own:
                 ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
                 (its largest column, 1 %, 10 % and 50 % of the columns, all
                 of them), each beside the library's CSR product and the CSR
-                kernel on the same matrix and x.
+                kernel on the same matrix and x. The block kernels B4 (BELL)
+                and B7 (BCSR) also run twice per schedule and must agree bit
+                for bit (no atomics), run at every segment count S of their
+                design (1, 2, 4, 8; the C entry point called directly)
+                against the plain version (timed), and report their launch: S, the
+                ring's stages and chunk bytes, dynamic shared memory per CTA,
+                clusters resident at once, the blocks read, max / mean blocks
+                per block row and the rate reached on the bytes the product
+                needs (TB/s); beside B7 three yardsticks: its launch over
+                empty block rows, a ``zero_`` of its output and
+                ``torch.sum`` over the same stored blocks.
 4. ``serve``    ``SpmvServer.run`` (tuner from ``build_tuner()``) on 16 requests with
                 repeats over six full-width matrices (``human_gene2`` at its
                 published 14,340 x 14,340 with ~9.0 M nonzeros, five more
@@ -44,7 +54,10 @@ no network. Phases, each printing one JSON object on a line of its own:
                 seconds. Then a forced four-block plan of ``hetero`` through
                 both executors. Block-kernel launches must add up to the
                 blocks served, fused launches to the fused requests plus the
-                forced run.
+                forced run. Then ``block_case``: B4 and B7 on the largest
+                BELL row block the served plans launch (or the forced plan's),
+                at its plan's schedule, checked and timed as in phase 3, with
+                the fill of the blocks read.
 7. ``plugin``   registers BCSR (``repro_torch.sparse.bcsr``), runs run-time
                 mode over the pool x 4 objectives, ``compile_spmv(.., "bcsr")``
                 on ``pkustk04`` at n = 8,000 (and reports the storage guard's
@@ -113,8 +126,10 @@ bits; the plain version rounds products the same way but sums in float32).
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,12 +154,20 @@ from repro_torch.core.objectives import ObjectiveValues  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bcsr import bcsr_spmv, bcsr_spmv_plain  # noqa: E402
-from repro_torch.kernels.bell import bell_spmv, bell_spmv_plain  # noqa: E402
+from repro_torch.kernels.bell import (  # noqa: E402
+    bell_live_blocks,
+    bell_spmv,
+    bell_spmv_plain,
+    block_launch_plan,
+)
 from repro_torch.kernels.common import (  # noqa: E402
+    BLOCK_SEGMENT_CHOICES,
     DEFAULT_SCHEDULE,
     InfeasibleConfig,
     KernelSchedule,
+    block_segments,
     ceil_to,
+    sm_count,
 )
 from repro_torch.kernels.csr import csr_spmv, csr_spmv_plain  # noqa: E402
 from repro_torch.kernels.ell import ell_spmm, ell_spmm_plain, ell_spmv, ell_spmv_plain  # noqa: E402
@@ -465,6 +488,9 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
         y_k = kern()
         torch.cuda.synchronize()  # a fault during the run surfaces here
         y_p = plain()
+        if fmt in BLOCK_KERNELS:  # no atomics: a second launch gives the same bits
+            if not torch.equal(y_k, kern()):
+                raise AssertionError(f"{fmt} kernel: two launches differ at {sched}")
         yk = y_k.reshape(-1)[:n_rows].cpu().numpy()
         yp = y_p.reshape(-1)[:n_rows].cpu().numpy()
         err = scaled_err(yk, yp)
@@ -478,6 +504,10 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
         worst = max(worst, err)
         ms = timed(kern)
         per_schedule[sched_tag(sched)] = {"ms": ms, "err_vs_plain": err, "err_vs_host": err_host}
+        if fmt in BLOCK_KERNELS:
+            per_schedule[sched_tag(sched)].update(
+                bit_identical=True, **block_design(fmt, mat, sched),
+                by_segments=segment_sweep(fmt, mat, ins[-1], sched, y_p, tol))
         if sched == time_schedule:
             bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
             entry = {
@@ -496,11 +526,124 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
                 entry["padded_bytes"] = nbytes - ins[0] + stored  # ins[0]: the needed planes
                 entry["padded_bound_ms"] = 1e3 * entry["padded_bytes"] / HBM_BYTES_PER_S
             library_call(fmt, dense, mat, x, ref64, entry)
+            if fmt in BLOCK_KERNELS:
+                entry.update(block_design(fmt, mat, sched, ms=ms, nbytes=nbytes))
+            if fmt == "bcsr":
+                entry["yardsticks"] = block_yardsticks(mat, entry["segments"])
         del mat
     entry["max_abs_err"] = worst
     entry["tolerance"] = {"float32": 1e-4, "bfloat16": 3e-2}
+    if fmt in BLOCK_KERNELS:
+        entry["bit_identical"] = True  # every schedule: two launches, same bits
     entry["by_schedule"] = per_schedule
     return entry
+
+
+# ----------------------------------------------- block kernels B4 / B7 design
+BLOCK_KERNELS = ("bell", "bcsr")
+
+
+def block_rows_of(fmt: str, mat) -> tuple[int, int, torch.Tensor]:
+    """(block rows, the blocks per row the segment rule is given, blocks the
+    kernel reads in each block row) of a prepared BELL or BCSR matrix."""
+    if fmt == "bell":
+        nbr, mb = mat.block_cols.shape
+        return nbr, mb, bell_live_blocks(mat.block_cols)
+    nbr = mat.n_block_rows
+    return nbr, -(-mat.data.shape[0] // max(nbr, 1)), (mat.block_ptr[1:] - mat.block_ptr[:-1])
+
+
+def block_kernel_registers(logs: dict) -> dict:
+    """Registers and spill bytes of every template instance of the block
+    kernels, from the ``-Xptxas=-v`` build logs: {fmt: {"f32_br64": [regs,
+    spill bytes], ...}}."""
+    out = {}
+    for fmt in BLOCK_KERNELS:
+        for k in kbuild.ptxas_usage(logs.get(SOURCE[fmt], "")):
+            m = re.search(r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E", k["function"])
+            if m:
+                key = f"{m.group(1).lower()}_br{m.group(2)}"
+                out.setdefault(fmt, {})[key] = [k["registers"], k["spill_bytes"]]
+    return out
+
+
+def block_design(fmt: str, mat, sched: KernelSchedule, ms=None, nbytes=None) -> dict:
+    """What the block kernel's launch looks like on this card: segments S,
+    the ring (stages x chunk bytes), dynamic shared memory per CTA, clusters
+    resident at once (cudaOccupancyMaxActiveClusters), the blocks it reads
+    and how ragged its block rows are; with a time, the rate it reached on
+    the bytes the product needs."""
+    nbr, per_row, live = block_rows_of(fmt, mat)
+    segments = block_segments(nbr, per_row, sm_count(DEVICE))
+    with torch.cuda.device(DEVICE):
+        plan = block_launch_plan(SOURCE[fmt], mat.br, segments,
+                                 sched.accum_dtype == "bfloat16")
+    live = live.float()
+    out = {"br": mat.br, "block_rows": nbr, "segments": segments, "ctas": nbr * segments,
+           "stages": plan["stages"], "stage_bytes": plan["chunk_bytes"],
+           "smem_bytes_per_cta": plan["smem_bytes"], "threads_per_cta": plan["threads"],
+           "active_clusters": plan["active_clusters"], "blocks_read": int(live.sum()),
+           "max_over_mean_blocks": float(live.max() / live.mean().clamp(min=1e-9))}
+    if ms is not None:
+        out["tb_per_s"] = nbytes / ms / 1e9
+    return out
+
+
+def segment_sweep(fmt: str, mat, panels: torch.Tensor, sched: KernelSchedule,
+                  y_plain: torch.Tensor, tol: float) -> dict:
+    """The kernel at every S of the design, whatever the segment rule would
+    pick here, against the plain version, timed, with the clusters of S
+    CTAs the card holds at once: the C entry point called directly (the
+    wrapper's launch counter does not move)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream(DEVICE).cuda_stream
+    bf16 = int(sched.accum_dtype == "bfloat16")
+    ref = y_plain.reshape(-1).cpu().numpy()
+    out = {}
+    for segments in BLOCK_SEGMENT_CHOICES:
+        y = torch.empty_like(y_plain)
+        if fmt == "bell":
+            fn = kbuild.bind("spmv_bell", "spmv_bell_launch", [vp] * 4 + [ci] * 6 + [vp])
+            nbr, mb = mat.block_cols.shape
+            args = (mat.data.data_ptr(), mat.block_cols.data_ptr(), panels.data_ptr(),
+                    y.data_ptr(), nbr, mb, mat.br, mat.bc, bf16, segments, stream)
+        else:
+            fn = kbuild.bind("spmv_bcsr", "spmv_bcsr_launch", [vp] * 5 + [ci] * 5 + [vp])
+            args = (mat.data.data_ptr(), mat.block_cols.data_ptr(), mat.block_ptr.data_ptr(),
+                    panels.data_ptr(), y.data_ptr(), mat.n_block_rows, mat.br, mat.bc,
+                    bf16, segments, stream)
+        kbuild.check_launch(fn(*args), f"{fmt} kernel at S = {segments}")
+        torch.cuda.synchronize()
+        err = scaled_err(y.reshape(-1).cpu().numpy(), ref)
+        if not err <= tol:
+            raise AssertionError(f"{fmt} kernel at S = {segments}: vs plain {err:.3e}")
+        with torch.cuda.device(DEVICE):
+            plan = block_launch_plan(SOURCE[fmt], mat.br, segments, bool(bf16))
+        out[segments] = {"err_vs_plain": err, "ms": timed(lambda: fn(*args)),
+                         "active_clusters": plan["active_clusters"]}
+    return out
+
+
+def block_yardsticks(mat, segments: int) -> dict:
+    """Yardsticks for the BCSR kernel's time, timed here and used nowhere in
+    the port: the same launch over empty block rows (block_ptr all zero:
+    launch, set-up and combine, no block streamed); one ``zero_`` of its
+    output (the least any launch costs under this timing); and one
+    ``torch.sum`` over the stored blocks it streams (the card's read rate on
+    the same bytes through a PyTorch reduction)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = kbuild.bind("spmv_bcsr", "spmv_bcsr_launch", [vp] * 5 + [ci] * 5 + [vp])
+    zero_ptr = torch.zeros_like(mat.block_ptr)
+    y = torch.empty((mat.n_block_rows, mat.br), dtype=torch.float32, device=DEVICE)
+    panels = torch.zeros((1, mat.bc), dtype=torch.float32, device=DEVICE)
+    args = (mat.data.data_ptr(), mat.block_cols.data_ptr(), zero_ptr.data_ptr(),
+            panels.data_ptr(), y.data_ptr(), mat.n_block_rows, mat.br, mat.bc, 0, segments,
+            torch.cuda.current_stream(DEVICE).cuda_stream)
+    kbuild.check_launch(fn(*args), "bcsr kernel over empty block rows")
+    blocks = mat.data[: mat.n_blocks]
+    sum_ms = timed(lambda: blocks.sum())
+    return {"empty_launch_ms": timed(lambda: fn(*args)), "zero_output_ms": timed(y.zero_),
+            "torch_sum_ms": sum_ms, "torch_sum_tb_per_s": blocks.numel() * 4 / sum_ms / 1e9}
 
 
 def library_call(fmt: str, dense: np.ndarray, mat, x: torch.Tensor, ref64, entry: dict) -> None:
@@ -561,6 +704,66 @@ def serve_partitioned_requests(session, server, part_pool, names, xs, fused: boo
             raise AssertionError(f"partitioned request {rid} ({n}, fused={fused}) wrong: "
                                  f"err {err:.3e} > {tol:.0e}")
     return rows, blocks_served
+
+
+def served_bell_block(session, results: list[dict], part_pool, forced: dict):
+    """The largest BELL block the partitioned path served (the rows
+    ``partitioned.bell_blocks`` reports) with the schedule its plan gave it;
+    without one, the forced hetero plan's BELL block at the default schedule.
+    Returns (matrix name, (row_start, row_end), schedule, where it came from)."""
+    best = None
+    for r in results:
+        for r0, r1 in r["bell_blocks"]:
+            if best is None or r1 - r0 > best[1][1] - best[1][0]:
+                best = (r["matrix"], (r0, r1))
+    if best is None:
+        rows = forced["blocks"][forced["formats"].index("bell")]
+        return "hetero", tuple(rows), DEFAULT_SCHEDULE, "forced plan"
+    name, rows = best
+    entry = cache_entry(session, part_pool[name])
+    sched = next(KernelSchedule(**b["schedule"]) for b in entry.blocks
+                 if b["fmt"] == "bell" and (b["row_start"], b["row_end"]) == rows)
+    return name, rows, sched, "served plan"
+
+
+def check_block_case(name: str, rows, dense: np.ndarray, sched: KernelSchedule,
+                     source: str) -> dict:
+    """B4 and B7 on one row block at the shape the partitioned path launches
+    B4 with: against plain and float64, two launches bit for bit, times
+    beside the byte bound, the fill of the blocks read and the launch's
+    design fields. These launches are checks, not the main path."""
+    block = np.ascontiguousarray(dense[rows[0]:rows[1]])
+    rng = np.random.default_rng(SEED + 11)
+    x_host = rng.normal(size=block.shape[1]).astype(np.float32)
+    x = torch.as_tensor(x_host, device=DEVICE)
+    ref64 = host_product(block, x_host)
+    nnz = int((block != 0).sum())
+    out = {"matrix": name, "rows": list(rows), "source": source, "shape": list(block.shape),
+           "nnz": nnz, "schedule": sched_tag(sched)}
+    for fmt in BLOCK_KERNELS:
+        mat = prepared(fmt, block, sched)
+        kern, plain, ins, out_elems, flops, _ = kernel_calls(fmt, mat, x, sched)
+        y_k = kern()
+        torch.cuda.synchronize()
+        y_p = plain()
+        yk = y_k.reshape(-1)[: block.shape[0]].cpu().numpy()
+        err = scaled_err(yk, y_p.reshape(-1)[: block.shape[0]].cpu().numpy())
+        err_host, tol = scaled_err(yk, ref64), tol_of(sched)
+        identical = torch.equal(y_k, kern())
+        if not (np.isfinite(yk).all() and err <= tol and err_host <= tol and identical):
+            raise AssertionError(f"{fmt} kernel on the {source}'s BELL block {rows} of {name}: "
+                                 f"vs plain {err:.3e}, vs float64 {err_host:.3e}, "
+                                 f"bit-identical {identical}")
+        ms = timed(kern)
+        bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
+        design = block_design(fmt, mat, sched, ms=ms, nbytes=nbytes)
+        out[fmt] = {"ms": ms, "plain_ms": timed(plain, reps=5), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "err_vs_plain": err,
+                    "err_vs_host": err_host, "bit_identical": identical,
+                    "block_fill": nnz / max(design["blocks_read"] * mat.br * mat.bc, 1),
+                    **design}
+        del mat
+    return out
 
 
 def run_forced(dense: np.ndarray, fmts, x: np.ndarray) -> dict:
@@ -1420,6 +1623,7 @@ def main() -> None:
     emit("build", seconds=built["seconds"], built=built["built"],
          dir=os.path.relpath(str(kbuild.build_dir()), HERE), ptxas=ptxas)
     registers = {n: sorted({k["registers"] for k in ks}) for n, ks in ptxas.items()}
+    block_regs = block_kernel_registers(built["log"])
 
     t0 = time.perf_counter()
     pool = make_pool()
@@ -1459,6 +1663,8 @@ def main() -> None:
             sched = csr_schedule if fmt == "csr" else DEFAULT_SCHEDULE
             checked[fmt] = check_kernel(fmt, name, {**pool, **extra}[name], sched)
         checked[fmt]["registers"] = registers.get(SOURCE[fmt])
+        if fmt in BLOCK_KERNELS:  # per template instance: accumulator, br
+            checked[fmt]["registers_by_instance"] = block_regs.get(fmt)
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
@@ -1606,6 +1812,17 @@ def main() -> None:
     emit("partitioned", seconds=time.perf_counter() - t0, requests=results,
          forced=forced, bell_blocks=bell_at_full_width, launches=phase_launches,
          session=part_stats, composites=composites)
+
+    # ---- B4 and B7 at the BELL block shape the partitioned path launches ---
+    t0 = time.perf_counter()
+    name, rows, sched, source = served_bell_block(part_session, results["sequential"],
+                                                  part_pool, forced)
+    case = check_block_case(name, rows, part_pool[name], sched, source)
+    for fmt in BLOCK_KERNELS:
+        checked[fmt]["partitioned_block"] = {
+            **{k: case[k] for k in ("matrix", "rows", "source", "shape", "nnz", "schedule")},
+            **case[fmt]}
+    emit("block_case", seconds=time.perf_counter() - t0, **case)
 
     # ---- plugin: BCSR registered, run-time mode, direct, forced plan ------
     t0 = time.perf_counter()

@@ -1,15 +1,26 @@
-"""Blocked-CSR SpMV: CUDA kernel wrapper + its plain PyTorch version.
+"""Blocked-CSR SpMV (kernel B7): CUDA kernel wrapper + its plain PyTorch version.
 
 ``bcsr_spmv`` takes ``data (nb_pad, br, bc)``, ``block_cols`` and
 ``block_rows (nb_pad,)``, ``block_ptr (nbr + 1,)`` and ``x_panels
 (n_col_blocks, bc)`` — x padded and reshaped into ``bc``-panels by the
 caller — and returns ``y: (nbr, br)``. On a CUDA tensor it launches
-``csrc/spmv_bcsr.cu`` (one CTA per block row looping ``block_ptr``, a warp
-per row of the block row, one ``float4`` of block and panel per lane,
-shuffle reduce; padding blocks are never read) or raises; on a CPU tensor —
-and only then — it takes ``bcsr_spmv_plain``, which scatters every stored
-block (padding blocks into a spill row) by ``block_rows`` as the reference
-does. The kernel takes ``bc == 128`` only (what ``prepare`` produces).
+``csrc/spmv_bcsr.cu`` or raises; on a CPU tensor — and only then — it
+takes ``bcsr_spmv_plain``, which scatters every stored block (padding
+blocks into a spill row) by ``block_rows`` as the reference does. The
+kernel takes ``bc == 128`` only (what ``prepare`` produces) and ``br`` in
+8, 16, ..., 256.
+
+The kernel replaces ``src/repro/sparse/bcsr.py: bcsr_spmv_pallas``. Its
+bound on the card is bytes: a block moves ``br * 512`` bytes for
+``2 * br * 128`` flops. Its design is B4's (``csrc/block_spmv.cuh``) with a
+ragged range per block row: ``block_ptr[i] .. block_ptr[i + 1]`` is cut into
+``block_segments`` segments (S from ``nbr`` and the mean blocks per block
+row of the padded count, host-side shapes only); one CTA per segment, a
+cluster of them per block row, the segment streamed with TMA bulk copies
+into a shared-memory ring, rows kept in registers, x panels read once per
+block, and the partials added in rank order through distributed shared
+memory — no atomics, the same bits on every run. Padding blocks are never
+read. A block row far longer than the mean still sets the pace.
 """
 
 from __future__ import annotations
@@ -18,7 +29,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand
+from repro_torch.kernels.common import (
+    KernelSchedule,
+    bf16_round,
+    block_segments,
+    check_operand,
+    sm_count,
+)
 
 
 def bcsr_spmv_plain(
@@ -75,14 +92,16 @@ def bcsr_spmv(
     from repro_torch.kernels.build import bind, check_launch
 
     nbr = block_ptr.shape[0] - 1
+    segments = block_segments(nbr, -(-nb_pad // max(nbr, 1)), sm_count(dev))
     y = torch.empty((nbr, br), dtype=torch.float32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = bind("spmv_bcsr", "spmv_bcsr_launch", [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp])
+    fn = bind("spmv_bcsr", "spmv_bcsr_launch",
+              [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp])
     with torch.cuda.device(dev):
         err = fn(
             data.data_ptr(), block_cols.data_ptr(), block_ptr.data_ptr(),
             x_panels.data_ptr(), y.data_ptr(), nbr, br, bc,
-            int(schedule.accum_dtype == "bfloat16"),
+            int(schedule.accum_dtype == "bfloat16"), segments,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(err, "bcsr_spmv")

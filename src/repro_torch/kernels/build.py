@@ -30,7 +30,7 @@ KERNEL_SOURCES = (
     "spmv_csr", "spmv_ell", "spmv_sell", "spmv_bell", "spmv_fused", "spmv_bcsr",
     "spmspv_csc", "spmm_ell",
 )
-_SHARED_HEADERS = ("common.cuh",)
+_SHARED_HEADERS = ("common.cuh", "block_spmv.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

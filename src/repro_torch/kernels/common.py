@@ -136,6 +136,40 @@ def fused_nnz_tile(total_elems: int, *, max_steps: int = MAX_FUSED_STEPS) -> int
     return ceil_to(tile, LANE)
 
 
+# Block kernels B4 / B7 (csrc/block_spmv.cuh): a block row's live blocks are
+# cut into S segments, one CTA each, launched as a cluster of S CTAs; S is a
+# power of two up to the portable cluster size.
+BLOCK_SEGMENT_CHOICES = (1, 2, 4, 8)
+# CTAs per SM in one wave: a block-kernel CTA takes ~100 KB of shared
+# memory, so two fit on an SM
+BLOCK_CTAS_PER_SM = 2
+
+
+def block_segments(nbr: int, blocks_per_row: int, n_sms: int) -> int:
+    """Segments S per block row for the block kernels, from shapes only.
+
+    The largest S in ``BLOCK_SEGMENT_CHOICES`` whose ``nbr * S`` CTAs still
+    fit one wave of ``BLOCK_CTAS_PER_SM`` CTAs per SM, and no more segments
+    than ``blocks_per_row`` (BELL: the padded width ``mb``; BCSR: the mean
+    stored blocks per block row, rounded up) can fill; at least 1. The CTAs
+    of a second wave start only as those of the first finish, and more,
+    shorter segments cost more set-up than they balance (``chip_smoke.py``
+    times every S). The wrapper calls it with host-side integers, so a
+    launch copies nothing from the device.
+    """
+    s = BLOCK_SEGMENT_CHOICES[0]
+    for nxt in BLOCK_SEGMENT_CHOICES[1:]:
+        if nbr * nxt > BLOCK_CTAS_PER_SM * n_sms or nxt > max(int(blocks_per_row), 1):
+            break
+        s = nxt
+    return s
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``None`` means ``"cuda"``.
 

@@ -7,10 +7,16 @@ padding to ``max_blocks``. On matrices whose block occupancy is skewed
 across block-rows (power-law graphs), BCSR stores only the occupied blocks
 — the same padding-elimination argument CSR makes over ELL, one level up.
 
-On the card the kernel (``repro_torch.kernels.bcsr``, ``csrc/spmv_bcsr.cu``)
-runs one CTA per block row over ``block_ptr``: BELL's body with a ragged
-bound, no atomics. ``block_rows`` (padding blocks carry ``n_block_rows``,
-the spill row) serves the plain version and the conversion back to dense.
+On the card the kernel B7 (``repro_torch.kernels.bcsr``,
+``csrc/spmv_bcsr.cu``) replaces the reference's ``bcsr_spmv_pallas``. It is
+bound by the bytes of the stored blocks and shares BELL's Hopper body
+(``csrc/block_spmv.cuh``): each block row's range ``block_ptr[i] ..
+block_ptr[i + 1]`` is cut into segments, one CTA each in a cluster per block
+row, streamed with TMA bulk copies through a shared-memory ring; the
+segments' partials are added in rank order through distributed shared
+memory, with no atomics. Padding blocks are never read. ``block_rows``
+(padding blocks carry ``n_block_rows``, the spill row) serves the plain
+version and the conversion back to dense.
 
 This module is deliberately *plugin-shaped*: it touches none of the
 dispatch layers (ops / tuning_space / objectives / session / serving).

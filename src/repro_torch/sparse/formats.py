@@ -110,6 +110,9 @@ class BELL:
 
     ``data[i, j]`` is the j-th stored block of block-row i; its block-column
     is ``block_cols[i, j]``. Padding blocks are all-zero with block-column 0.
+    ``bell_from_dense`` writes each block row's real block-columns in
+    strictly ascending order before its padding; the CUDA kernel relies on
+    that order to stop at the padding (``kernels.bell.bell_live_blocks``).
     """
 
     data: torch.Tensor  # (n_block_rows, max_blocks, br, bc)

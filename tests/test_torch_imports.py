@@ -111,8 +111,8 @@ def test_kernels_export_spmm_beside_spmv():
 def test_cuda_sources_call_no_library_kernel():
     sources = sorted((PKG / "csrc").glob("*.cu*"))
     assert {s.name for s in sources} == {
-        "common.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu", "spmv_bell.cu",
-        "spmv_fused.cu", "spmv_bcsr.cu", "spmspv_csc.cu", "spmm_ell.cu"}
+        "common.cuh", "block_spmv.cuh", "spmv_csr.cu", "spmv_ell.cu", "spmv_sell.cu",
+        "spmv_bell.cu", "spmv_fused.cu", "spmv_bcsr.cu", "spmspv_csc.cu", "spmm_ell.cu"}
     from repro_torch.kernels.build import KERNEL_SOURCES
 
     assert {f"{n}.cu" for n in KERNEL_SOURCES} == {s.name for s in sources if s.suffix == ".cu"}
