@@ -25,7 +25,13 @@ no network. Phases, each printing one JSON object on a line of its own:
                 ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
                 (its largest column, 1 %, 10 % and 50 % of the columns, all
                 of them), each beside the library's CSR product and the CSR
-                kernel on the same matrix and x. The block kernels B4 (BELL)
+                kernel on the same matrix and x. The SELL kernel B3 runs
+                twice per schedule (bit for bit: no atomics), reports the
+                launch its plan chose (threads per row P, slices per CTA,
+                CTAs, the elements its padding stop reads against the
+                nonzeros and the stored slots) and runs at every other P
+                (the C entry point called directly; checked, twice, timed).
+                The block kernels B4 (BELL)
                 and B7 (BCSR) also run twice per schedule and must agree bit
                 for bit (no atomics), run at every segment count S of their
                 design (1, 2, 4, 8; the C entry point called directly)
@@ -99,9 +105,14 @@ no network. Phases, each printing one JSON object on a line of its own:
                 k = 4 (the tick's four token vectors, also held against the
                 engine's four per-token SpMVs) and k = 16, over the six
                 schedules against the plain version and a float64 host
-                product, at k = 1 against the ELL SpMV kernel; times beside
-                the byte bound, the library's CSR SpMM and k separate CSR
-                SpMVs. Then ``ops.spmm`` once per case: its main path.
+                product, twice (bit for bit), at k = 1 against the ELL SpMV
+                kernel; at the default schedule the launch its plan chose
+                (lanes per slot, columns per lane, warps per row, rows per
+                warp, CTAs, plane slots read against live and stored) and
+                the plan's alternatives (checked, twice, timed); times
+                beside the byte bound, the library's CSR SpMM and k
+                separate CSR SpMVs. Then ``ops.spmm`` once per case: its
+                main path.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
@@ -170,7 +181,19 @@ from repro_torch.kernels.common import (  # noqa: E402
     sm_count,
 )
 from repro_torch.kernels.csr import csr_spmv, csr_spmv_plain  # noqa: E402
-from repro_torch.kernels.ell import ell_spmm, ell_spmm_plain, ell_spmv, ell_spmv_plain  # noqa: E402
+from repro_torch.kernels.ell import (  # noqa: E402
+    SPMM_CHUNK,
+    SPMM_WARPS_PER_CTA,
+    _spmm_launch,
+    ell_live_width,
+    ell_spmm,
+    ell_spmm_plain,
+    ell_spmv,
+    ell_spmv_plain,
+    spmm_launch_plan,
+    spmm_plan_choices,
+    spmm_slots_read,
+)
 from repro_torch.kernels.fused import fused_spmv, fused_spmv_plain, lower_fused  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     compile_spmv,
@@ -178,7 +201,16 @@ from repro_torch.kernels.ops import (  # noqa: E402
     prepare,
     spmm,
 )
-from repro_torch.kernels.sell import sell_spmv, sell_spmv_plain  # noqa: E402
+from repro_torch.kernels.sell import (  # noqa: E402
+    SELL_MAX_THREADS,
+    _sell_launch,
+    sell_launch_plan,
+    sell_live_width,
+    sell_plan_choices,
+    sell_slots_read,
+    sell_spmv,
+    sell_spmv_plain,
+)
 from repro_torch.kernels.spmspv import (  # noqa: E402
     col_nnz,
     csc_from_dense,
@@ -463,10 +495,56 @@ def bound(ins, out_elems: int, flops: int) -> tuple[float, str, int]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+# what the timer saw over the run: timings, repetitions, late ones (the host
+# enqueue outlasted the flush; left out), timings whose every repetition was
+# late (kept), where the late ones were timed ("function:line": [late,
+# reps]), and each timing's median flush ms
+TIMER = {"timings": 0, "reps": 0, "late": 0, "all_late": 0, "late_at": {}, "flush_ms": []}
+
+
+def timing(fn, reps: int = 20) -> dict:
+    """``cuda_time_ms`` of ``fn`` (CUDA events, the L2 flushed before every
+    repetition, as a served request finds it), its flush and late
+    repetitions added to ``TIMER``."""
+    t = cuda_time_ms(fn, warmup=3, reps=reps)
+    late = int(t["late"])
+    TIMER["timings"] += 1
+    TIMER["reps"] += reps
+    TIMER["late"] += late
+    TIMER["all_late"] += late == reps
+    TIMER["flush_ms"].append(t["flush_ms"])
+    if late:
+        f = sys._getframe(1)
+        if f.f_code.co_name == "timed":
+            f = f.f_back
+        at = TIMER["late_at"].setdefault(f"{f.f_code.co_name}:{f.f_lineno}", [0, 0])
+        at[0] += late
+        at[1] += reps
+    return t
+
+
 def timed(fn, reps: int = 20) -> float:
-    """Median ms by CUDA events, the L2 flushed before every repetition (as
-    a served request finds it)."""
-    return cuda_time_ms(fn, warmup=3, reps=reps)["median_ms"]
+    """Median ms of ``timing``."""
+    return timing(fn, reps)["median_ms"]
+
+
+def timer_summary() -> dict:
+    f = sorted(TIMER["flush_ms"])
+    return {**{k: v for k, v in TIMER.items() if k != "flush_ms"},
+            "flush_ms": [f[0], f[len(f) // 2], f[-1]] if f else None}
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Mean host microseconds to enqueue one call of ``fn`` (no synchronise
+    between calls): the wrapper's own cost, which ``timed`` hides behind its
+    L2 flush."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSchedule) -> dict:
@@ -481,14 +559,14 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
     schedules = list(SCHEDULES)
     if time_schedule not in schedules:
         schedules.append(time_schedule)
-    entry = None
+    entry, launch = None, {}
     for sched in schedules:
         mat = prepared(fmt, dense, sched)
         kern, plain, ins, out_elems, flops, stored = kernel_calls(fmt, mat, x, sched)
         y_k = kern()
         torch.cuda.synchronize()  # a fault during the run surfaces here
         y_p = plain()
-        if fmt in BLOCK_KERNELS:  # no atomics: a second launch gives the same bits
+        if fmt in TWICE:  # no atomics: a second launch gives the same bits
             if not torch.equal(y_k, kern()):
                 raise AssertionError(f"{fmt} kernel: two launches differ at {sched}")
         yk = y_k.reshape(-1)[:n_rows].cpu().numpy()
@@ -508,6 +586,10 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
             per_schedule[sched_tag(sched)].update(
                 bit_identical=True, **block_design(fmt, mat, sched),
                 by_segments=segment_sweep(fmt, mat, ins[-1], sched, y_p, tol))
+        if fmt == "sell":
+            per_schedule[sched_tag(sched)]["bit_identical"] = True
+            launch[sched_tag(sched)] = {**sell_design(mat),
+                                        "by_plan": sell_sweep(mat, x, sched, y_p, tol)}
         if sched == time_schedule:
             bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
             entry = {
@@ -533,10 +615,102 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
         del mat
     entry["max_abs_err"] = worst
     entry["tolerance"] = {"float32": 1e-4, "bfloat16": 3e-2}
-    if fmt in BLOCK_KERNELS:
+    if fmt in TWICE:
         entry["bit_identical"] = True  # every schedule: two launches, same bits
     entry["by_schedule"] = per_schedule
+    if launch:
+        entry["launch"] = launch  # printed in the check line, not the kernels line
     return entry
+
+
+# ------------------------------------------------------------ B3 (SELL) design
+def sell_design(mat) -> dict:
+    """The launch B3's plan chose for a prepared SELL matrix: threads per row
+    P, slices per CTA, threads per CTA, CTAs; beside it the live and the
+    stored elements."""
+    n_slices = mat.slice_width.shape[0]
+    plan = sell_launch_plan(n_slices, mat.C, mat.data.shape[0] / (n_slices * mat.C),
+                            sm_count(DEVICE))
+    live = sell_live_width(mat.data, mat.slice_ptr, mat.slice_width, mat.C)
+    return {"C": mat.C, "slices": n_slices, **plan, "slots_live": int(live.sum()),
+            "slots_stored": int(mat.data.shape[0])}
+
+
+def sell_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tensor,
+               tol: float) -> dict:
+    """B3 at its plan and at every other P that fits a CTA, through the
+    launch helper (the wrapper's launch counter does not move): against the
+    plain version, twice (same bits), timed, and once more with the
+    kernel's read counts on, whose sum (``slots_read``) must equal the stop
+    rule's host twin (``slots_read_modelled``, ``sell_slots_read``)."""
+    n_slices = mat.slice_width.shape[0]
+    args = (mat.data, mat.cols, mat.slice_ptr, mat.slice_width, x, mat.C)
+    ref = y_plain.reshape(-1).cpu().numpy()
+    live = sell_live_width(mat.data, mat.slice_ptr, mat.slice_width, mat.C).cpu()
+    out = {}
+    for plan in sell_plan_choices(n_slices, mat.C, mat.data.shape[0] / (n_slices * mat.C),
+                                  sm_count(DEVICE)):
+        tag = f"P{plan['row_threads']}"
+        first = _sell_launch(*args, plan, sched)
+        y = _sell_launch(*args, plan, sched)
+        reads = torch.zeros(plan["ctas"] * plan["threads"], dtype=torch.int32, device=DEVICE)
+        y_counted = _sell_launch(*args, plan, sched, reads)
+        torch.cuda.synchronize()
+        err = scaled_err(y.reshape(-1).cpu().numpy(), ref)
+        if not (err <= tol and torch.equal(first, y) and torch.equal(y, y_counted)):
+            raise AssertionError(f"sell kernel at {tag}: vs plain {err:.3e}, "
+                                 f"same bits {torch.equal(first, y)}, "
+                                 f"with counts {torch.equal(y, y_counted)}")
+        read = int(reads.sum())
+        modelled = sell_slots_read(live, mat.slice_width.cpu(), mat.C, plan, sched.unroll)
+        if read != modelled:
+            raise AssertionError(f"sell kernel at {tag} read {read} elements, "
+                                 f"its host twin says {modelled}")
+        out[tag] = {"slices_per_cta": plan["slices_per_cta"], "ctas": plan["ctas"],
+                    "err_vs_plain": err, "slots_read": read, "slots_read_modelled": modelled,
+                    "ms": timed(lambda: _sell_launch(*args, plan, sched))}
+    return out
+
+
+def check_constants() -> dict:
+    """The constants B8's and B3's host plans share with their kernels, as
+    the built kernels export them; raises where Python's differ."""
+    got = {}
+    for source, n in (("spmm_ell", 2), ("spmv_sell", 1)):
+        out = (ctypes.c_int * n)()
+        fn = getattr(kbuild.load_library(source), f"{source}_constants")
+        fn.restype = None
+        fn(out)
+        got[source] = list(out)
+    want = {"spmm_ell": [SPMM_CHUNK, SPMM_WARPS_PER_CTA],
+            "spmv_sell": [SELL_MAX_THREADS]}
+    if got != want:
+        raise AssertionError(f"kernel constants {got} differ from the host plans' {want}")
+    return got
+
+
+def kernel_registers(logs: dict, source: str, pattern: str) -> dict:
+    """Registers and spill bytes of each template instance of one source's
+    kernel, from its ``-Xptxas=-v`` build log: {instance: [regs, spill
+    bytes]}, the instance named by ``pattern``'s groups joined by ``_``."""
+    out = {}
+    for k in kbuild.ptxas_usage(logs.get(source, "")):
+        m = re.search(pattern, k["function"])
+        if m:
+            out["_".join(g.lower() for g in m.groups())] = [k["registers"], k["spill_bytes"]]
+    return out
+
+
+# template instances named by their parameters: B4/B7 accumulator and br;
+# B3 accumulator and unroll; B8 accumulator, lanes per slot, columns per lane
+# (the served instances, without the read count)
+INSTANCE = {
+    "bell": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
+    "bcsr": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
+    "sell": r"sell_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
+    "spmm": r"ell_spmm_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
+}
+TWICE = ("sell", "bell", "bcsr")  # kernels whose two launches must give the same bits
 
 
 # ----------------------------------------------- block kernels B4 / B7 design
@@ -551,20 +725,6 @@ def block_rows_of(fmt: str, mat) -> tuple[int, int, torch.Tensor]:
         return nbr, mb, bell_live_blocks(mat.block_cols)
     nbr = mat.n_block_rows
     return nbr, -(-mat.data.shape[0] // max(nbr, 1)), (mat.block_ptr[1:] - mat.block_ptr[:-1])
-
-
-def block_kernel_registers(logs: dict) -> dict:
-    """Registers and spill bytes of every template instance of the block
-    kernels, from the ``-Xptxas=-v`` build logs: {fmt: {"f32_br64": [regs,
-    spill bytes], ...}}."""
-    out = {}
-    for fmt in BLOCK_KERNELS:
-        for k in kbuild.ptxas_usage(logs.get(SOURCE[fmt], "")):
-            m = re.search(r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E", k["function"])
-            if m:
-                key = f"{m.group(1).lower()}_br{m.group(2)}"
-                out.setdefault(fmt, {})[key] = [k["registers"], k["spill_bytes"]]
-    return out
 
 
 def block_design(fmt: str, mat, sched: KernelSchedule, ms=None, nbytes=None) -> dict:
@@ -1499,6 +1659,9 @@ def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDU
             mat = mats[key]
             y_k = ell_spmm(mat.data, mat.cols, X, sched)
             torch.cuda.synchronize()  # a fault during the run surfaces here
+            if not torch.equal(y_k, ell_spmm(mat.data, mat.cols, X, sched)):  # no atomics
+                raise AssertionError(f"spmm kernel: two launches differ on {case['name']} "
+                                     f"k={k} at {sched}")
             yk = y_k[:n_rows].cpu().numpy()
             yp = ell_spmm_plain(mat.data, mat.cols, X, sched)[:n_rows].cpu().numpy()
             err, err_host, tol = scaled_err(yk, yp), scaled_err(yk, ref64), tol_of(sched)
@@ -1509,7 +1672,7 @@ def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDU
                     f"{err:.3e}, vs host float64 {err_host:.3e}, tolerance {tol:.0e}")
             worst = max(worst, err)
             tag = sched_tag(sched) + ("_par" if sched.dimension_semantics == "parallel" else "")
-            cell = {"err_vs_plain": err, "err_vs_host": err_host}
+            cell = {"err_vs_plain": err, "err_vs_host": err_host, "bit_identical": True}
             if k == 1:  # B8 at one right-hand side is B2's product
                 y2 = ell_spmv(mat.data, mat.cols, X[:, 0].contiguous(), sched)[:n_rows]
                 y2 = y2.cpu().numpy()
@@ -1529,6 +1692,9 @@ def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDU
             nbytes = need + n_cols * k * 4 + n_rows * k * 4
             padded = stored + n_cols * k * 4 + R * k * 4  # every slot of the planes
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * row["nnz"] * k / FP32_FLOPS
+            t = timing(lambda: ell_spmm(mat.data, mat.cols, X, sched))
+            row["ms"], row["ms_late_reps"] = t["median_ms"], int(t["late"])
+            row["wrapper_host_us"] = host_us(lambda: ell_spmm(mat.data, mat.cols, X, sched))
             csr = prepare(A, "csr", device=DEVICE)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # "sparse CSR is beta" notice
@@ -1537,20 +1703,68 @@ def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDU
                 row["library_err"] = scaled_err((lib @ X).cpu().numpy(), ref64)
                 row["library_ms"] = timed(lambda: lib @ X)
             cols = [X[:, j].contiguous() for j in range(k)]
+            row["launch"] = {**spmm_design(mat, k), "by_plan": spmm_sweep(mat, X, sched, y_k)}
+            b1 = timing(lambda: [csr_spmv(csr.data, csr.indices, csr.indptr, c, sched)
+                                 for c in cols])
             row.update({
                 "schedule": sched_tag(sched), "width": W,
-                "ms": timed(lambda: ell_spmm(mat.data, mat.cols, X, sched)),
                 "plain_ms": timed(lambda: ell_spmm_plain(mat.data, mat.cols, X, sched), reps=5),
                 "bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
                 "padded_bytes": padded, "padded_bound_ms": 1e3 * padded / HBM_BYTES_PER_S,
-                "b1_per_vector_ms": timed(lambda: [csr_spmv(csr.data, csr.indices, csr.indptr,
-                                                            c, sched) for c in cols]),
+                "b1_per_vector_ms": b1["median_ms"], "b1_per_vector_late_reps": int(b1["late"]),
                 "library": "torch.sparse_csr_tensor(A) @ X"})
             if row["library_err"] > 1e-4:
                 raise AssertionError(f"library SpMM wrong: {row}")
         rows.append(row)
     return {"rows": rows, "max_abs_err": worst, "mats": mats}
+
+
+def spmm_design(mat, k: int) -> dict:
+    """The launch B8's plan chose for ELL planes and k: lanes per slot,
+    columns per lane, warps per row, rows per warp, CTAs; beside it the
+    live and the stored plane slots."""
+    R, W = mat.data.shape
+    plan = spmm_launch_plan(R, W, k, sm_count(DEVICE))
+    return {**plan, "slots_live": int(ell_live_width(mat.data).sum()), "slots_stored": R * W}
+
+
+def spmm_sweep(mat, X: torch.Tensor, sched: KernelSchedule, y_kernel: torch.Tensor) -> dict:
+    """B8 at its plan and the plan's alternatives (``spmm_plan_choices``)
+    through the launch helper (the wrapper's counter does not move): each
+    twice (the same bits, and the bits of the wrapper's launch where the
+    split is the same, since then every launch adds in the same order),
+    timed, and once more with the kernel's read counts on, whose sum
+    (``slots_read``) must equal the stop rule's host twin
+    (``slots_read_modelled``, ``spmm_slots_read``)."""
+    R, W = mat.data.shape
+    k = X.shape[1]
+    bf16 = sched.accum_dtype == "bfloat16"
+    live = ell_live_width(mat.data).cpu()
+    plan0 = spmm_launch_plan(R, W, k, sm_count(DEVICE))
+    out = {}
+    for plan in spmm_plan_choices(R, W, k, sm_count(DEVICE)):
+        tag = f"wpr{plan['warps_per_row']}_rpw{plan['rows_per_warp']}"
+        first = _spmm_launch(mat.data, mat.cols, X, plan, bf16)
+        Y = _spmm_launch(mat.data, mat.cols, X, plan, bf16)
+        reads = torch.zeros(plan["warps"], dtype=torch.int32, device=DEVICE)
+        Y_counted = _spmm_launch(mat.data, mat.cols, X, plan, bf16, reads)
+        torch.cuda.synchronize()
+        if not (torch.equal(first, Y) and torch.equal(Y, Y_counted)):
+            raise AssertionError(f"spmm kernel at {tag}: two launches differ")
+        # a split row adds its warps' partials in another order than one warp
+        same = plan["warps_per_row"] == plan0["warps_per_row"]
+        err = scaled_err(Y.cpu().numpy(), y_kernel.cpu().numpy())
+        if (same and not torch.equal(Y, y_kernel)) or err > tol_of(sched):
+            raise AssertionError(f"spmm kernel at {tag} differs from the plan's launch: {err:.3e}")
+        read, modelled = int(reads.sum()), spmm_slots_read(live, W, plan)
+        if read != modelled:
+            raise AssertionError(f"spmm kernel at {tag} read {read} plane slots, "
+                                 f"its host twin says {modelled}")
+        out[tag] = {"ctas": plan["ctas"], "warps": plan["warps"], "err_vs_plan": err,
+                    "slots_read": read, "slots_read_modelled": modelled,
+                    "ms": timed(lambda: _spmm_launch(mat.data, mat.cols, X, plan, bf16))}
+    return out
 
 
 def spmm_cases(rim: np.ndarray, tick: dict) -> list[dict]:
@@ -1595,9 +1809,12 @@ def run_spmm_phase(cases: list[dict]) -> tuple[dict, dict]:
     entry = {k: head[k] for k in ("matrix", "shape", "nnz", "k", "schedule", "width", "ms",
                                   "plain_ms", "bound_ms", "bound_by", "bytes", "padded_bytes",
                                   "padded_bound_ms", "library_ms", "library",
-                                  "b1_per_vector_ms")}
+                                  "b1_per_vector_ms", "wrapper_host_us")}
+    # the launch of each case goes to the spmm phase line, not the kernels line
     entry.update(x="the decode tick's four token vectors", max_abs_err=checked["max_abs_err"],
-                 tolerance={"float32": 1e-4, "bfloat16": 3e-2}, cases=rows)
+                 tolerance={"float32": 1e-4, "bfloat16": 3e-2}, bit_identical=True,
+                 cases=[{k: v for k, v in r.items() if k != "launch"} for r in rows],
+                 launch={f"{r['matrix']} k={r['k']}": r["launch"] for r in rows})
     return entry, launches
 
 
@@ -1621,9 +1838,9 @@ def main() -> None:
                   "spill_bytes": k["spill_bytes"]} for k in kbuild.ptxas_usage(log)]
              for n, log in built["log"].items()}
     emit("build", seconds=built["seconds"], built=built["built"],
-         dir=os.path.relpath(str(kbuild.build_dir()), HERE), ptxas=ptxas)
+         dir=os.path.relpath(str(kbuild.build_dir()), HERE), ptxas=ptxas,
+         plan_constants=check_constants())
     registers = {n: sorted({k["registers"] for k in ks}) for n, ks in ptxas.items()}
-    block_regs = block_kernel_registers(built["log"])
 
     t0 = time.perf_counter()
     pool = make_pool()
@@ -1663,12 +1880,14 @@ def main() -> None:
             sched = csr_schedule if fmt == "csr" else DEFAULT_SCHEDULE
             checked[fmt] = check_kernel(fmt, name, {**pool, **extra}[name], sched)
         checked[fmt]["registers"] = registers.get(SOURCE[fmt])
-        if fmt in BLOCK_KERNELS:  # per template instance: accumulator, br
-            checked[fmt]["registers_by_instance"] = block_regs.get(fmt)
+        if fmt in INSTANCE:
+            checked[fmt]["registers_by_instance"] = kernel_registers(
+                built["log"], SOURCE[fmt], INSTANCE[fmt])
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
-                  for f, e in checked.items()})
+                  for f, e in checked.items()},
+         sell_launch=checked["sell"].pop("launch"))
 
     # ---- serve: the main path, compile-time mode (CSR kernel) -----------
     session = AutoSpmvSession(tuner)
@@ -1901,11 +2120,13 @@ def main() -> None:
     t0 = time.perf_counter()
     checked["spmm"], got = run_spmm_phase(spmm_cases(pool["rim"], tick))
     checked["spmm"]["registers"] = registers.get(SOURCE["spmm"])
+    checked["spmm"]["registers_by_instance"] = kernel_registers(
+        built["log"], SOURCE["spmm"], INSTANCE["spmm"])
     for k in launches:
         launches[k] += got[k]
     torch.cuda.empty_cache()
     emit("spmm", seconds=time.perf_counter() - t0, launches=got,
-         cases=checked["spmm"]["cases"])
+         launch=checked["spmm"].pop("launch"), cases=checked["spmm"]["cases"])
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:
@@ -1922,7 +2143,7 @@ def main() -> None:
         }
         for fmt in KERNEL_ORDER
     ]
-    emit("done", total_seconds=time.perf_counter() - t_all)
+    emit("done", total_seconds=time.perf_counter() - t_all, timer=timer_summary())
     print(json.dumps({"kernels": kernels}, default=float), flush=True)
     print(run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]), flush=True)
     print(json.dumps({"ok": True, "device": {

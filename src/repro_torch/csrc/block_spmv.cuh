@@ -333,18 +333,30 @@ int plan_launch(Kernel kernel, int br, int S, int* out) {
 
 // Launch Kernel over nbr * S CTAs in clusters of S on `stream`; returns the
 // launch's cudaError_t (the caller then checks cudaGetLastError). The plan
-// (shared memory limit, cluster occupancy) is made once per kernel instance
-// and S; a cluster that cannot be scheduled is an error, never a fallback.
+// (shared memory limit, cluster occupancy) is made once per kernel instance,
+// device and S: cudaFuncSetAttribute raises the limit on the current device
+// only, so each device gets its own plan. A device ordinal beyond the table
+// and a cluster that cannot be scheduled are errors, never a fallback.
+// (Every test card so far has been the only device of its machine, so the
+// second device's plan has not been exercised on hardware.)
+constexpr int kMaxDevices = 16;
+
 template <auto Kernel, typename... Args>
 int launch_clusters(int br, int nbr, int S, cudaStream_t stream, Args... args) {
   if (S < 1 || S > kMaxSegments || (S & (S - 1)) != 0) return (int)cudaErrorInvalidValue;
-  static int planned[kMaxSegments + 1] = {};  // per instance and S: 1 = planned, else the error
-  if (planned[S] == 0) {
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  // per instance, device and S: 1 = planned, else the error
+  static int planned[kMaxDevices][kMaxSegments + 1] = {};
+  int& plan = planned[dev][S];
+  if (plan == 0) {
     int out[5];
     const int err = plan_launch(Kernel, br, S, out);
-    planned[S] = err == 0 ? 1 : err;
+    plan = err == 0 ? 1 : err;
   }
-  if (planned[S] != 1) return planned[S];
+  if (plan != 1) return plan;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(nbr) * static_cast<unsigned>(S));
   cfg.blockDim = dim3(kThreads);

@@ -10,10 +10,21 @@ reference kernel: ``R % rows_per_block == 0`` and ``W % nnz_tile == 0``.
 
 ``ell_spmm`` is the multi-vector form over the same planes,
 ``Y[r, j] = sum_k data[r, k] * X[cols[r, k], j]`` with a row-major dense
-``X: (n_cols, k)``; it launches ``csrc/spmm_ell.cu`` (a warp per row, its
-lanes split between the output columns and the row's slots) on a CUDA
-tensor and takes ``ell_spmm_plain`` on a CPU one. ``schedule.unroll`` is
-not read by either, as in the reference's SpMM kernel.
+``X: (n_cols, k)``; it launches ``csrc/spmm_ell.cu`` on a CUDA tensor and
+takes ``ell_spmm_plain`` on a CPU one. Its launch comes from
+``spmm_launch_plan`` (shapes and the card's SM count only): lanes own
+output columns (groups of ``lanes`` lanes per slot, ``vec`` columns each),
+several warps share a row where R alone would leave the SMs short of
+warps, and a warp works on several rows where R exceeds what the card
+holds at once. ``rows_per_block`` and ``nnz_tile`` only align the planes;
+``schedule.unroll`` is not read, as in the reference's SpMM kernel.
+
+Precondition of the SpMM kernel (not of the plain version): each row
+stores its nonzeros first and its padding (value 0, column 0) after, as
+``ell_from_dense`` writes them. The kernel stops after the 32-slot chunk
+that holds a row's first zero value (``ell_live_width`` is the rule's host
+twin) and gathers no X row for a padding slot, so it differs from summing
+every slot only where ``X[0]`` holds a non-finite value.
 """
 
 from __future__ import annotations
@@ -22,7 +33,23 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand
+from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand, sm_count
+
+# B8's launch (csrc/spmm_ell.cu): a chunk is the 32 slots a warp's lanes read
+# with one coalesced load each; a CTA holds 8 warps. The kernel's
+# ``spmm_ell_constants`` returns these two, and its entry point refuses a
+# grid that does not cover the rows by this rule.
+SPMM_CHUNK = 32
+SPMM_WARPS_PER_CTA = 8
+SPMM_LANE_GROUPS = (1, 2, 4, 8, 16, 32)  # lanes per slot, each a template instance
+SPMM_SPLIT_CHOICES = (1, 2, 4, 8)  # warps per row
+# split rows across warps until R * warps_per_row reaches this many warps
+# per SM: fewer leave each SM a handful of warps, each waiting on a long
+# chain of dependent loads
+SPMM_TARGET_WARPS_PER_SM = 16
+# the most warps an SM holds (2,048 threads): beyond one wave of them a
+# warp takes several rows in turn
+SPMM_RESIDENT_WARPS_PER_SM = 64
 
 
 def ell_spmv_plain(
@@ -54,36 +81,29 @@ def _check_planes(data, cols, operand, name: str, ndim: int, schedule: KernelSch
     return R, W
 
 
-def _launch(wrapper, source: str, data, cols, operand, out_shape, ints) -> torch.Tensor:
-    """Launch ``source``'s kernel on the operand's CUDA device and current
-    stream with ``(data, cols, operand, out, *ints, stream)``, count the
-    launch on ``wrapper`` and return ``out``; raises on any other device."""
-    dev = operand.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"{wrapper.__name__} has no kernel for device {dev}")
-    from repro_torch.kernels.build import bind, check_launch
-
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = bind(source, f"{source}_launch", [vp] * 4 + [ci] * len(ints) + [vp])
-    with torch.cuda.device(dev):
-        err = fn(data.data_ptr(), cols.data_ptr(), operand.data_ptr(), out.data_ptr(), *ints,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(err, wrapper.__name__)
-    wrapper.launches += 1
-    return out
-
-
 def ell_spmv(
     data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, schedule: KernelSchedule
 ) -> torch.Tensor:
     """SpMV over padded ELL planes ``data/cols: (R, W)``; returns ``y: (R,)``."""
     R, W = _check_planes(data, cols, x, "x", 1, schedule)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return ell_spmv_plain(data, cols, x, schedule)
-    bf16 = int(schedule.accum_dtype == "bfloat16")
-    return _launch(ell_spmv, "spmv_ell", data, cols, x, (R,),
-                   (R, W, schedule.rows_per_block, schedule.unroll, bf16))
+    if dev.type != "cuda":
+        raise RuntimeError(f"ell_spmv has no kernel for device {dev}")
+    from repro_torch.kernels.build import bind, check_launch
+
+    y = torch.empty((R,), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = bind("spmv_ell", "spmv_ell_launch", [vp] * 4 + [ci] * 5 + [vp])
+    with torch.cuda.device(dev):
+        err = fn(data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), R, W,
+                 schedule.rows_per_block, schedule.unroll,
+                 int(schedule.accum_dtype == "bfloat16"),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "ell_spmv")
+    ell_spmv.launches += 1
+    return y
 
 
 ell_spmv.launches = 0  # kernel launches made by this process
@@ -102,18 +122,140 @@ def ell_spmm_plain(
     return torch.einsum("rw,rwk->rk", data, xg)
 
 
+def spmm_launch_plan(R: int, W: int, k: int, n_sms: int) -> dict:
+    """B8's launch from integers only: planes ``(R, W)``, ``k`` columns of
+    X, the card's SM count.
+
+    * ``vec``: columns a lane reads per load, 4 (one 16-byte load) where
+      ``k % 4 == 0``, else 1.
+    * ``lanes``: lanes per slot, the least power of two (at most 32) whose
+      ``lanes * vec`` columns cover ``k``; the warp's ``32 / lanes`` slot
+      groups multiply different slots, ``passes`` repeat it for wider k.
+    * ``warps_per_row``: with one pass, the most of ``SPMM_SPLIT_CHOICES``
+      (and no more than the row's chunks) until ``R * warps_per_row`` reaches
+      ``SPMM_TARGET_WARPS_PER_SM`` warps per SM; warp q of a row takes the
+      chunks ``[chunks * q / wpr, chunks * (q + 1) / wpr)``.
+    * ``rows_per_warp``: enough that the grid is one wave of
+      ``SPMM_RESIDENT_WARPS_PER_SM`` warps per SM, at least 1.
+    """
+    R, W, k, n_sms = int(R), int(W), int(k), int(n_sms)
+    if k < 1 or R < 0 or W < 0 or n_sms < 1:
+        raise ValueError(f"no SpMM launch for R={R}, W={W}, k={k}, n_sms={n_sms}")
+    vec = 4 if k % 4 == 0 else 1
+    lanes = next(g for g in SPMM_LANE_GROUPS if g * vec >= k or g == SPMM_LANE_GROUPS[-1])
+    passes = -(-k // (lanes * vec))
+    chunks = -(-W // SPMM_CHUNK)
+    wpr = SPMM_SPLIT_CHOICES[0]
+    if passes == 1:
+        for nxt in SPMM_SPLIT_CHOICES[1:]:
+            if R * wpr >= SPMM_TARGET_WARPS_PER_SM * n_sms or nxt > chunks:
+                break
+            wpr = nxt
+    return spmm_grid(R, W, k, lanes, vec, wpr, _rows_per_warp(R, wpr, n_sms))
+
+
+def _rows_per_warp(R: int, wpr: int, n_sms: int) -> int:
+    """Rows a warp takes in turn so that the grid is one wave."""
+    return max(1, -(-R * wpr // (SPMM_RESIDENT_WARPS_PER_SM * n_sms)))
+
+
+def spmm_grid(R: int, W: int, k: int, lanes: int, vec: int, wpr: int, rpw: int) -> dict:
+    """The plan's dict for given choices: what the C entry point takes, and
+    the CTAs and warps that follow."""
+    rows_per_cta = SPMM_WARPS_PER_CTA // wpr * rpw
+    ctas = -(-R // rows_per_cta)
+    return {"lanes": lanes, "vec": vec, "passes": -(-k // (lanes * vec)),
+            "chunks": -(-W // SPMM_CHUNK), "warps_per_row": wpr, "rows_per_warp": rpw,
+            "rows_per_cta": rows_per_cta, "ctas": ctas, "warps": ctas * SPMM_WARPS_PER_CTA}
+
+
+def spmm_plan_choices(R: int, W: int, k: int, n_sms: int) -> list[dict]:
+    """The plan and its alternatives: every valid warps-per-row with its
+    rows-per-warp rule, and the plan's split at one row per warp."""
+    plan = spmm_launch_plan(R, W, k, n_sms)
+    out = [plan]
+    for wpr in SPMM_SPLIT_CHOICES:
+        if wpr > 1 and (plan["passes"] > 1 or wpr > max(plan["chunks"], 1)):
+            continue
+        for r in {_rows_per_warp(R, wpr, n_sms), 1}:
+            alt = spmm_grid(R, W, k, plan["lanes"], plan["vec"], wpr, r)
+            if alt not in out:
+                out.append(alt)
+    return out
+
+
+def ell_live_width(data: torch.Tensor) -> torch.Tensor:
+    """Live slots of each ELL row, ``(R,)`` int64: the index of its first
+    zero value, else ``W``. Rows store their nonzeros first, so this is the
+    row's length; B8 stops after the chunk that holds it."""
+    R, W = data.shape
+    if not W:
+        return torch.zeros(R, dtype=torch.int64, device=data.device)
+    j = torch.arange(W, device=data.device).expand(R, W)
+    return torch.where(data == 0, j, W).amin(dim=1)
+
+
+def spmm_slots_read(live: torch.Tensor, W: int, plan: dict) -> int:
+    """Plane slots B8 reads under ``plan`` for rows of ``live`` live slots:
+    warp q of a row reads its chunks in order and stops after the one that
+    holds the row's first padding slot (its first chunk at least), or at
+    the end of its range."""
+    chunks, wpr = plan["chunks"], plan["warps_per_row"]
+    tail = torch.div(live, SPMM_CHUNK, rounding_mode="floor")  # chunk of the first padding slot
+    total = torch.zeros_like(live)
+    for q in range(wpr):
+        beg, end = chunks * q // wpr, chunks * (q + 1) // wpr
+        if beg == end:
+            continue
+        last = torch.clamp(tail, min=beg, max=end - 1)
+        n = last - beg + 1
+        # slots of the chunks read; the last chunk of the planes may be short
+        total += torch.clamp(n * SPMM_CHUNK, max=W - beg * SPMM_CHUNK)
+    return int(total.sum()) * plan["passes"]
+
+
 def ell_spmm(
     data: torch.Tensor, cols: torch.Tensor, X: torch.Tensor, schedule: KernelSchedule
 ) -> torch.Tensor:
     """SpMM over padded ELL planes ``data/cols: (R, W)`` and a dense
-    row-major ``X: (n_cols, k)``; returns ``Y: (R, k)`` (float32)."""
+    row-major ``X: (n_cols, k)``; returns ``Y: (R, k)`` (float32).
+
+    The kernel's precondition (the module's note): each row's nonzeros come
+    before its padding, so a row holds no stored zero before a nonzero.
+    ``ell_from_dense`` writes planes so; the wrapper does not check planes
+    from elsewhere, on which the kernel drops what follows a stored zero."""
     R, W = _check_planes(data, cols, X, "X", 2, schedule)
     if X.device.type == "cpu":
         return ell_spmm_plain(data, cols, X, schedule)
+    if X.device.type != "cuda":
+        raise RuntimeError(f"ell_spmm has no kernel for device {X.device}")
+    plan = spmm_launch_plan(R, W, X.shape[1], sm_count(X.device))
+    Y = _spmm_launch(data, cols, X, plan, schedule.accum_dtype == "bfloat16")
+    ell_spmm.launches += 1
+    return Y
+
+
+def _spmm_launch(data, cols, X, plan: dict, accum_bf16: bool, reads=None) -> torch.Tensor:
+    """Launch B8 under ``plan`` on X's CUDA device and current stream and
+    return ``Y``. ``reads``: ``None``, or an int32 tensor of ``plan["warps"]``
+    entries in which each warp writes the plane slots it loaded."""
+    from repro_torch.kernels.build import bind, check_launch
+
+    dev = X.device
+    R, W = data.shape
     k = X.shape[1]
-    bf16 = int(schedule.accum_dtype == "bfloat16")
-    return _launch(ell_spmm, "spmm_ell", data, cols, X, (R, k),
-                   (R, W, k, schedule.rows_per_block, bf16))
+    if plan["vec"] == 4 and X.data_ptr() % 16:
+        X = X.clone()  # a fresh allocation: 16-byte aligned rows for the float4 loads
+    Y = torch.empty((R, k), dtype=torch.float32, device=dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = bind("spmm_ell", "spmm_ell_launch", [vp] * 4 + [ci] * 9 + [vp] * 2)
+    with torch.cuda.device(dev):
+        err = fn(data.data_ptr(), cols.data_ptr(), X.data_ptr(), Y.data_ptr(), R, W, k,
+                 plan["lanes"], plan["vec"], plan["warps_per_row"], plan["rows_per_warp"],
+                 plan["ctas"], int(accum_bf16), None if reads is None else reads.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "ell_spmm")
+    return Y
 
 
 ell_spmm.launches = 0  # kernel launches made by this process

@@ -206,7 +206,10 @@ def ell_from_dense(
     dense: np.ndarray, dtype=np.float32, min_width: int = 1, *, device=None
 ) -> ELL:
     device = resolve_device(device)
-    dense = np.asarray(dense)
+    # nonzeros are chosen after the cast: a value that rounds to 0 is not
+    # stored, so no row holds a stored zero before a nonzero (the SpMM
+    # kernel stops at a row's first zero)
+    dense = np.asarray(dense).astype(dtype, copy=False)
     n_rows, n_cols = dense.shape
     counts = _row_counts(dense)
     width = max(int(counts.max(initial=0)), min_width)
@@ -256,7 +259,9 @@ def sell_from_dense(
     dense: np.ndarray, C: int = 4 * SUBLANE, q: int = LANE, dtype=np.float32, *, device=None
 ) -> SELL:
     device = resolve_device(device)
-    dense = np.asarray(dense)
+    # nonzeros are chosen after the cast, as in ell_from_dense (the SELL
+    # kernel stops at the padding, found by its zeros)
+    dense = np.asarray(dense).astype(dtype, copy=False)
     n_rows, n_cols = dense.shape
     counts = _row_counts(dense)
     n_slices = (n_rows + C - 1) // C

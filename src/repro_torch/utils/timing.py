@@ -195,7 +195,9 @@ def measure_wall_time(
     }
 
 
-_L2_FLUSH_BYTES = 256 * 1024 * 1024  # several times any current L2
+# several times any current L2, and long enough to write (~0.3 ms at 3.35
+# TB/s) that the host enqueues ``fn`` while the device is still busy
+_L2_FLUSH_BYTES = 1024 * 1024 * 1024
 _flush_buffers: dict = {}
 
 
@@ -208,11 +210,14 @@ def cuda_time_ms(
     stream, so the figure is device time, not host enqueue time. A buffer
     larger than the L2 cache is overwritten before every repetition, outside
     the timed pair: ``fn`` finds the cache cold, as a served request does,
-    and the flush keeps the device busy while the host enqueues ``fn`` —
-    without it, a ``fn`` shorter than the host's own launch path would
-    measure the host's gaps instead of the kernel. Returns
-    median/mean/min over ``reps``. Raises when no CUDA device is present —
-    a device time is never taken on the host.
+    and the flush keeps the device busy while the host enqueues ``fn``.
+    A repetition whose host enqueue of ``fn`` took longer than the flush ran
+    on the device is "late": its pair may hold the idle gap before ``fn``'s
+    first launch, so the statistics leave it out, unless every repetition is
+    late (then they keep all, and ``late`` says so). Returns median/mean/min
+    over the repetitions kept, their count, the late count, and the flush's
+    and the host enqueue's median milliseconds. Raises when no CUDA device
+    is present — a device time is never taken on the host.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
@@ -225,22 +230,35 @@ def cuda_time_ms(
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    pairs = []
+    runs = []
     for _ in range(reps):
-        flush.zero_()
+        before = torch.cuda.Event(enable_timing=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        before.record()
+        flush.zero_()
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         end.record()
-        pairs.append((start, end))
+        runs.append((before, start, end, host_ms))
     torch.cuda.synchronize()
-    samples = sorted(s.elapsed_time(e) for s, e in pairs)
-    n = len(samples)
-    median = samples[n // 2] if n % 2 else 0.5 * (samples[n // 2 - 1] + samples[n // 2])
+    flush_ms = [b.elapsed_time(s) for b, s, _, _ in runs]
+    device_ms = [s.elapsed_time(e) for _, s, e, _ in runs]
+    late = [h > f for (_, _, _, h), f in zip(runs, flush_ms)]
+    kept = sorted(d for d, x in zip(device_ms, late) if not x) or sorted(device_ms)
     return {
-        "median_ms": median,
-        "mean_ms": sum(samples) / n,
-        "min_ms": samples[0],
-        "reps": float(n),
+        "median_ms": _median(kept),
+        "mean_ms": sum(kept) / len(kept),
+        "min_ms": kept[0],
+        "reps": float(len(kept)),
+        "late": float(sum(late)),
+        "flush_ms": _median(sorted(flush_ms)),
+        "host_ms": _median(sorted(h for _, _, _, h in runs)),
     }
+
+
+def _median(xs: list[float]) -> float:
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])

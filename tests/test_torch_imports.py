@@ -4,6 +4,7 @@ points refuse to run on the CPU unless the caller names it."""
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -191,3 +192,67 @@ def test_cuda_timer_and_build_refuse_a_machine_without_the_toolchain(monkeypatch
     with pytest.raises(RuntimeError, match="cudaError 98"):
         build.check_launch(98, "csr_spmv")
     build.check_launch(0, "csr_spmv")
+
+
+# the host-side launch rules of B8 (ELL SpMM) and B3 (SELL)
+LAUNCH_RULES = {
+    "repro_torch.kernels.ell": ("spmm_launch_plan", "spmm_plan_choices", "_spmm_launch",
+                                "ell_live_width", "spmm_slots_read", "SPMM_CHUNK",
+                                "SPMM_WARPS_PER_CTA", "SPMM_SPLIT_CHOICES"),
+    "repro_torch.kernels.sell": ("sell_launch_plan", "sell_grid", "sell_plan_choices",
+                                 "_sell_launch", "sell_live_width", "sell_slots_read",
+                                 "SELL_ROW_THREADS"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(LAUNCH_RULES))
+def test_launch_rules_exist_and_import_nothing_of_the_reference(module):
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(PKG.parent)!r})\n"
+        f"m = importlib.import_module({module!r})\n"
+        f"missing = [n for n in {LAUNCH_RULES[module]!r} if not hasattr(m, n)]\n"
+        "assert not missing, missing\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""}, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def _constexprs(*names: str) -> dict:
+    """``constexpr int`` values of csrc sources, a ``spmv::`` name resolved
+    from common.cuh."""
+    vals = {}
+    for name in ("common.cuh",) + names:
+        for m in re.finditer(r"constexpr int (\w+) = ([\w:]+);", (PKG / "csrc" / name).read_text()):
+            v = m.group(2).removeprefix("spmv::")
+            vals[m.group(1)] = int(v) if v.isdigit() else vals[v]
+    return vals
+
+
+# the constants each host plan shares with its kernel: {python name: C name}
+PLAN_CONSTANTS = {
+    "spmm_ell.cu": ("repro_torch.kernels.ell", {"SPMM_CHUNK": "kChunk",
+                                                "SPMM_WARPS_PER_CTA": "kWarpsPerCta"}),
+    "spmv_sell.cu": ("repro_torch.kernels.sell", {"SELL_MAX_THREADS": "kMaxThreads"}),
+}
+
+
+@pytest.mark.parametrize("name", ["spmm_ell.cu", "spmv_sell.cu", "block_spmv.cuh"])
+def test_redesigned_kernels_add_without_atomics_and_plan_per_device(name):
+    text = (PKG / "csrc" / name).read_text()
+    assert not re.search(r"\batomic\w*\s*\(", text)  # no atomicAdd, atomicCAS, ...
+    if name == "block_spmv.cuh":  # the launch plan is kept per device and S
+        assert "cudaGetDevice(&dev)" in text and "planned[dev][S]" in text
+        return
+    # the host plan's constants are the kernel's (on the card the built
+    # library's <source>_constants is checked against them too)
+    import importlib
+
+    module, names = PLAN_CONSTANTS[name]
+    m = importlib.import_module(module)
+    c = _constexprs(name)
+    assert {py: getattr(m, py) for py in names} == {py: c[cn] for py, cn in names.items()}
