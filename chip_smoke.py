@@ -13,13 +13,27 @@ no network. Phases, each printing one JSON object on a line of its own:
 1. ``env``      torch / CUDA / nvcc versions, card name and power limit.
 2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (eight sources) for
                 sm_90a (one ``nvcc`` per source, in parallel) and reports the
-                seconds and each kernel's registers and spills (ptxas).
+                seconds and each kernel's registers and spills (ptxas); beside
+                them ``src/repro_torch/csrc/yardsticks/spmv_csr_vector.cu``, the parent design of
+                the CSR kernel (one warp per row), timed below and used
+                nowhere in the port.
 3. ``check``    every hand-written kernel against its plain PyTorch version
                 and a float64 host product on the card, over six schedules,
                 at the shapes the served path gives it; a disagreement beyond
                 the stated tolerance raises. Also times kernel, plain version
                 and the library's CSR product of the same matrix
-                (``torch.sparse_csr_tensor(A) @ x``). The fused kernel runs on the stream ``lower_fused``
+                (``torch.sparse_csr_tensor(A) @ x``). The CSR kernel B1
+                (a warp per row, hub rows split across chunk CTAs) is held
+                so at ``human_gene2`` and at
+                ``webgraph@14011`` (hub rows), twice per schedule (bit for
+                bit: no atomics), and at the served schedule reports its
+                plan (rows per row CTA, the hub threshold and chunk, chunk
+                and row CTAs, the hub rows and the carries of those that
+                cross chunks), the parent design timed in turns with it
+                (parent, B1, B1, parent), a sweep of launches (rows per CTA x
+                unroll, then the hub threshold and the chunk; checked, twice,
+                timed) and the bf16 error on webgraph's hub row beside the
+                parent's. The fused kernel runs on the stream ``lower_fused``
                 makes from a forced four-block plan of ``hetero``, the BCSR
                 kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel on the
                 ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
@@ -93,7 +107,8 @@ no network. Phases, each printing one JSON object on a line of its own:
                 bf16. The engine's planned CSR kernels (fp32 schedule) on
                 that step's token vectors at ``w_up`` and ``w_down``
                 against their plain version and a float64 host product,
-                timed at ``w_up``. (b) ``BatchedServer`` (4 slots,
+                twice (bit for bit), timed at both beside the parent design,
+                with the plan and the sweep of CTA shapes. (b) ``BatchedServer`` (4 slots,
                 ``max_len`` 256, 16 new tokens) on 8 requests of 4-16
                 prompt tokens: every tick must
                 launch the CSR kernel 84 x 4 = 336 times and nothing else.
@@ -138,6 +153,7 @@ bits; the plain version rounds products the same way but sums in float32).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -180,7 +196,16 @@ from repro_torch.kernels.common import (  # noqa: E402
     ceil_to,
     sm_count,
 )
-from repro_torch.kernels.csr import csr_spmv, csr_spmv_plain  # noqa: E402
+from repro_torch.kernels.csr import (  # noqa: E402
+    CSR_MAX_HUBS,
+    CSR_MAX_THREADS,
+    CSR_ROUND,
+    _csr_launch,
+    csr_hub_pieces,
+    csr_launch_plan,
+    csr_spmv,
+    csr_spmv_plain,
+)
 from repro_torch.kernels.ell import (  # noqa: E402
     SPMM_CHUNK,
     SPMM_WARPS_PER_CTA,
@@ -314,6 +339,19 @@ SOLVE_TOL = {"pagerank": 1e-7, "cg": 1e-6}
 POWER_ITERS = 30
 CLI_SCALE = WEB_SCALE  # launch.solve builds its own tuner at this scale
 _ZERO = ObjectiveValues(0.0, 0.0, 0.0, 0.0)
+
+# B1: the launches its sweep runs at each matrix beside the plan (rows per
+# row CTA, whose warps are min(rows, 8), x accumulators per lane; then the
+# hub threshold and the chunk at the plan's rows and unroll); the parent
+# design (one warp per row, no hub split) is built from csrc/yardsticks/ and
+# timed on the same inputs
+B1_ROWS = (2, 4, 8, 16, 64)
+B1_UNROLLS = (1, 2, 4, 8)
+B1_HUB_ROWS = (256, 4096)
+B1_CHUNKS = (4096, 65536)
+PARENT_SOURCE = os.path.join(HERE, "src", "repro_torch", "csrc", "yardsticks",
+                             "spmv_csr_vector.cu")
+PARENT = {}  # "fn": the parent's launch entry, "log": its build log
 
 # lm phase: qwen3-0.6b as published (28 layers, d 1,024, d_ff 3,072, vocab
 # 151,936; fp32 params, bf16 compute), FFNs pruned to 5 % and served sparse
@@ -590,6 +628,9 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
             per_schedule[sched_tag(sched)]["bit_identical"] = True
             launch[sched_tag(sched)] = {**sell_design(mat),
                                         "by_plan": sell_sweep(mat, x, sched, y_p, tol)}
+        if fmt == "csr":
+            per_schedule[sched_tag(sched)]["bit_identical"] = True
+            launch[sched_tag(sched)] = b1_design(mat, sched)
         if sched == time_schedule:
             bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
             entry = {
@@ -612,6 +653,9 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
                 entry.update(block_design(fmt, mat, sched, ms=ms, nbytes=nbytes))
             if fmt == "bcsr":
                 entry["yardsticks"] = block_yardsticks(mat, entry["segments"])
+            if fmt == "csr":
+                entry.update(b1_against_parent(kern, parent_call(mat, x, sched), y_k))
+                launch["by_shape"] = b1_sweep(mat, x, sched, y_p, tol)
         del mat
     entry["max_abs_err"] = worst
     entry["tolerance"] = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -672,18 +716,152 @@ def sell_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tenso
     return out
 
 
+# ------------------------------------------------------- B1 (CSR) design
+def start_parent_build():
+    """Start ``nvcc`` for the parent design of B1 (``csrc/yardsticks/``), with the
+    port's flags, beside the port's builds; (process or None, library)."""
+    h = hashlib.sha256()
+    for f in (PARENT_SOURCE, kbuild.CSRC_DIR / "common.cuh"):
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(kbuild.NVCC_FLAGS).encode())
+    out = kbuild.build_dir() / f"spmv_csr_vector-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return None, out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC_DIR), "-o", str(out),
+           PARENT_SOURCE]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_parent_build(proc, out) -> None:
+    log = ""
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {PARENT_SOURCE}:\n{log}")
+    fn = ctypes.CDLL(str(out)).spmv_csr_vector_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    fn.restype = ci
+    PARENT.update(fn=fn, log=log)
+
+
+def parent_call(mat, x: torch.Tensor, sched: KernelSchedule):
+    """One call of the parent B1 on a prepared CSR matrix at ``sched``, as
+    its wrapper made it: allocate y, launch. Timed beside B1, used nowhere
+    in the port."""
+    def call():
+        y = torch.empty(mat.shape[0], dtype=torch.float32, device=DEVICE)
+        err = PARENT["fn"](mat.data.data_ptr(), mat.indices.data_ptr(), mat.indptr.data_ptr(),
+                           x.data_ptr(), y.data_ptr(), mat.shape[0], sched.rows_per_block,
+                           sched.unroll, int(sched.accum_dtype == "bfloat16"),
+                           torch.cuda.current_stream(DEVICE).cuda_stream)
+        kbuild.check_launch(err, "parent B1")
+        return y
+    return call
+
+
+def b1_design(mat, sched: KernelSchedule) -> dict:
+    """The launch B1's plan chose for a prepared CSR matrix: threads per CTA,
+    rows per row CTA, the hub threshold, the chunk, chunk and row CTAs; the
+    hub rows, their nonzeros, those that cross chunks and the pieces
+    (carries) stored for them."""
+    plan = csr_launch_plan(mat.shape[0], mat.data.shape[0], sched.rows_per_block,
+                           sched.unroll, sm_count(DEVICE), n_cols=mat.shape[1])
+    return {**plan, **csr_hub_pieces(mat.indptr, plan)}
+
+
+def b1_against_parent(kern, parent, y_kernel: torch.Tensor) -> dict:
+    """The parent design on the same inputs: checked against B1, then
+    timed in turns (parent, B1, B1, parent) within this call."""
+    y_parent = parent()
+    torch.cuda.synchronize()
+    ref = y_kernel.cpu().numpy()
+    err = scaled_err(y_parent.cpu().numpy(), ref)
+    order = [timed(parent), timed(kern), timed(kern), timed(parent)]
+    return {"parent_ms": (order[0] + order[3]) / 2, "parent_err_vs_b1": err,
+            "in_turns_ms": {"parent": [order[0], order[3]], "b1": [order[1], order[2]]}}
+
+
+def b1_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tensor,
+             tol: float) -> dict:
+    """B1 at every launch of ``B1_ROWS`` x ``B1_UNROLLS``, and at the plan's
+    rows and unroll with each hub threshold of ``B1_HUB_ROWS`` and chunk of
+    ``B1_CHUNKS``, through the launch helper (the wrapper's launch counter
+    does not move): against the plain version, twice (same bits), timed."""
+    n, nnz = mat.shape[0], mat.data.shape[0]
+    rpb, unroll = sched.rows_per_block, sched.unroll
+    sms, cols = sm_count(DEVICE), mat.shape[1]
+    plans = [csr_launch_plan(n, nnz, r, u, sms, n_cols=cols) for r in B1_ROWS for u in B1_UNROLLS]
+    plans += [csr_launch_plan(n, nnz, rpb, unroll, sms, hub_row=h, n_cols=cols)
+              for h in B1_HUB_ROWS]
+    plans += [csr_launch_plan(n, nnz, rpb, unroll, sms, chunk=c, n_cols=cols) for c in B1_CHUNKS]
+    ref = y_plain.reshape(-1).cpu().numpy()
+    args = (mat.data, mat.indices, mat.indptr, x)
+    out = {}
+    base = csr_launch_plan(n, nnz, rpb, unroll, sms, n_cols=cols)
+    for plan in plans:
+        tag = f"rows{plan['rows_per_cta']}_u{plan['unroll']}"
+        for key in ("hub_row", "chunk"):
+            if plan[key] != base[key]:
+                tag += f"_{key}{plan[key]}"
+        first = _csr_launch(*args, plan, sched)
+        y = _csr_launch(*args, plan, sched)
+        torch.cuda.synchronize()
+        err = scaled_err(y.cpu().numpy(), ref)
+        if not (err <= tol and torch.equal(first, y)):
+            raise AssertionError(f"csr kernel at {tag}: vs plain {err:.3e}, "
+                                 f"same bits {torch.equal(first, y)}")
+        out[tag] = {"ctas": plan["ctas"], "err_vs_plain": err,
+                    "carries": csr_hub_pieces(mat.indptr, plan)["pieces"],
+                    "ms": timed(lambda: _csr_launch(*args, plan, sched))}
+    return out
+
+
+def b1_hub_bf16(web: np.ndarray, draws: int = 16) -> dict:
+    """bf16 error of B1 and of the parent design on ``webgraph``'s longest
+    (hub) row against the float64 host product, scaled by max |y| as the
+    tolerances are, at the bf16 schedules of the six and the served one:
+    mean and max over ``draws`` x vectors (one draw's error is mostly
+    chance), beside the worst row of each."""
+    rng = np.random.default_rng(SEED + 17)
+    hub = int(np.argmax((web != 0).sum(axis=1)))
+    out = {"row": hub, "row_nnz": int((web[hub] != 0).sum()), "draws": draws}
+    scheds = [s for s in SCHEDULES if s.accum_dtype == "bfloat16"]
+    scheds.append(KernelSchedule(rows_per_block=8, nnz_tile=1024, unroll=8,
+                                 accum_dtype="bfloat16"))
+    xs = [rng.normal(size=web.shape[1]).astype(np.float32) for _ in range(draws)]
+    refs = [host_product(web, x) for x in xs]
+    for sched in scheds:
+        mat = prepare(web, "csr", sched, device=DEVICE)
+        errs = {"b1": [], "parent": [], "b1_all_rows": [], "parent_all_rows": []}
+        for x_host, ref in zip(xs, refs):
+            x = torch.as_tensor(x_host, device=DEVICE)
+            scale = float(np.abs(ref).max())
+            for who, y in (("b1", csr_spmv(mat.data, mat.indices, mat.indptr, x, sched)),
+                           ("parent", parent_call(mat, x, sched)())):
+                y = y.cpu().numpy()
+                errs[who].append(abs(float(y[hub]) - ref[hub]) / scale)
+                errs[who + "_all_rows"].append(scaled_err(y, ref))
+        out[sched_tag(sched)] = {k: {"mean": float(np.mean(v)), "max": float(np.max(v))}
+                                 for k, v in errs.items()}
+    return out
+
+
 def check_constants() -> dict:
-    """The constants B8's and B3's host plans share with their kernels, as
-    the built kernels export them; raises where Python's differ."""
+    """The constants B8's, B3's and B1's host plans share with their
+    kernels, as the built kernels export them; raises where Python's differ."""
     got = {}
-    for source, n in (("spmm_ell", 2), ("spmv_sell", 1)):
+    for source, n in (("spmm_ell", 2), ("spmv_sell", 1), ("spmv_csr", 3)):
         out = (ctypes.c_int * n)()
         fn = getattr(kbuild.load_library(source), f"{source}_constants")
         fn.restype = None
         fn(out)
         got[source] = list(out)
     want = {"spmm_ell": [SPMM_CHUNK, SPMM_WARPS_PER_CTA],
-            "spmv_sell": [SELL_MAX_THREADS]}
+            "spmv_sell": [SELL_MAX_THREADS],
+            "spmv_csr": [CSR_MAX_THREADS, CSR_MAX_HUBS, CSR_ROUND]}
     if got != want:
         raise AssertionError(f"kernel constants {got} differ from the host plans' {want}")
     return got
@@ -703,14 +881,16 @@ def kernel_registers(logs: dict, source: str, pattern: str) -> dict:
 
 # template instances named by their parameters: B4/B7 accumulator and br;
 # B3 accumulator and unroll; B8 accumulator, lanes per slot, columns per lane
-# (the served instances, without the read count)
+# (the served instances, without the read count); B1 kernel (rows: the row
+# path alone; spmv: rows and chunks), accumulator and unroll
 INSTANCE = {
+    "csr": r"csr_(rows|spmv)_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "bell": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "bcsr": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "sell": r"sell_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "spmm": r"ell_spmm_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
 }
-TWICE = ("sell", "bell", "bcsr")  # kernels whose two launches must give the same bits
+TWICE = ("csr", "sell", "bell", "bcsr")  # kernels whose two launches must give the same bits
 
 
 # ----------------------------------------------- block kernels B4 / B7 design
@@ -1400,7 +1580,8 @@ def check_b1_ffn(engine, seen: dict) -> list[dict]:
     serves them with, against their plain version and a float64 host
     product on the decode tick's token vectors, for each FFN_CHECK matrix;
     time the first beside its bound, plain version and library call.
-    Comparison launches only."""
+    Comparison launches only; beside each, the parent design, the plan and
+    the sweep of CTA shapes."""
     rows = []
     for n in FFN_CHECK:
         kernel = engine.plan(n, "latency")[1]
@@ -1421,11 +1602,16 @@ def check_b1_ffn(engine, seen: dict) -> list[dict]:
             row["err_vs_host"] = max(row["err_vs_host"], scaled_err(yk, ref64[:, i]))
         if max(row["err_vs_plain"], row["err_vs_host"]) > 1e-4:
             raise AssertionError(f"B1 disagrees at the FFN shape: {row}")
-        if n == FFN_CHECK[0]:
-            bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
-            row.update(ms=timed(kern), plain_ms=timed(plain, reps=5), bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=nbytes)
-            library_call("csr", A, kernel.mat, x, ref64[:, -1], row)
+        y_k = kern()
+        if not torch.equal(y_k, kern()):
+            raise AssertionError(f"B1 at {n}: two launches differ")
+        bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
+        row.update(bit_identical=True, ms=timed(kern), plain_ms=timed(plain, reps=5),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+        library_call("csr", A, kernel.mat, x, ref64[:, -1], row)
+        row.update(b1_against_parent(kern, parent_call(kernel.mat, x, kernel.schedule), y_k))
+        row["launch"] = {**b1_design(kernel.mat, kernel.schedule),
+                         "by_shape": b1_sweep(kernel.mat, x, kernel.schedule, plain(), 1e-4)}
         rows.append(row)
     return rows
 
@@ -1833,12 +2019,17 @@ def main() -> None:
          cuda=torch.version.cuda, nvcc=nvcc_version, card=smi,
          device=torch.cuda.get_device_name(0))
 
+    parent_build = start_parent_build()  # B1's parent design, built beside
     built = kbuild.build_all()
+    finish_parent_build(*parent_build)
     ptxas = {n: [{"kernel": k["function"][:60], "registers": k["registers"],
                   "spill_bytes": k["spill_bytes"]} for k in kbuild.ptxas_usage(log)]
              for n, log in built["log"].items()}
     emit("build", seconds=built["seconds"], built=built["built"],
          dir=os.path.relpath(str(kbuild.build_dir()), HERE), ptxas=ptxas,
+         parent_b1={"source": os.path.relpath(PARENT_SOURCE, HERE),
+                    "ptxas": [[k["registers"], k["spill_bytes"]]
+                              for k in kbuild.ptxas_usage(PARENT["log"])]},
          plan_constants=check_constants())
     registers = {n: sorted({k["registers"] for k in ks}) for n, ks in ptxas.items()}
 
@@ -1879,15 +2070,27 @@ def main() -> None:
             name = CHECK_MATRIX[fmt]
             sched = csr_schedule if fmt == "csr" else DEFAULT_SCHEDULE
             checked[fmt] = check_kernel(fmt, name, {**pool, **extra}[name], sched)
+        if fmt == "csr":  # the solve path's matrix too: hub rows
+            web = extra["webgraph"]
+            checked[fmt]["at_webgraph"] = check_kernel(fmt, f"webgraph@{web.shape[0]}", web,
+                                                       web_schedule)
+            checked[fmt]["hub_row_bf16"] = b1_hub_bf16(web)
         checked[fmt]["registers"] = registers.get(SOURCE[fmt])
         if fmt in INSTANCE:
             checked[fmt]["registers_by_instance"] = kernel_registers(
                 built["log"], SOURCE[fmt], INSTANCE[fmt])
+        if fmt == "csr":  # [registers, spill bytes] of the served instances (unroll 8)
+            checked[fmt]["registers_served"] = {
+                k: v for k, v in checked[fmt]["registers_by_instance"].items()
+                if k.endswith(("f32_8", "bf16_8"))}
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
                   for f, e in checked.items()},
-         sell_launch=checked["sell"].pop("launch"))
+         sell_launch=checked["sell"].pop("launch"),
+         csr_launch={checked["csr"]["matrix"]: checked["csr"].pop("launch"),
+                     checked["csr"]["at_webgraph"]["matrix"]:
+                         checked["csr"]["at_webgraph"].pop("launch")})
 
     # ---- serve: the main path, compile-time mode (CSR kernel) -----------
     session = AutoSpmvSession(tuner)
@@ -2111,8 +2314,9 @@ def main() -> None:
     lm, got, tick = run_lm_phase(get_config(LM_ARCH))
     for k in launches:
         launches[k] += got[k]
-    # most of B1's launches are the decode's: its numbers at that shape too
-    checked["csr"]["at_lm_ffn"] = lm["checks"]["b1_ffn"][0]
+    # most of B1's launches are the decode's: its numbers at those shapes too
+    for key, row in zip(("at_lm_ffn", "at_lm_ffn_down"), lm["checks"]["b1_ffn"]):
+        checked["csr"][key] = {k: v for k, v in row.items() if k != "launch"}
     torch.cuda.empty_cache()
     emit("lm", seconds=time.perf_counter() - t0, **lm)
 

@@ -511,7 +511,7 @@ register_format(FormatSpec(
     reference=_ref_csr,
     footprint=_csr_footprint,
     priority=0,
-    description="Compressed Sparse Row (vector-CSR kernel, warp per row)",
+    description="Compressed Sparse Row (warp per row; hub rows split over nonzero chunks)",
 ))
 register_format(FormatSpec(
     name="ell",
