@@ -14,9 +14,13 @@ no network. Phases, each printing one JSON object on a line of its own:
 2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (eight sources) for
                 sm_90a (one ``nvcc`` per source, in parallel) and reports the
                 seconds and each kernel's registers and spills (ptxas); beside
-                them ``src/repro_torch/csrc/yardsticks/spmv_csr_vector.cu``, the parent design of
-                the CSR kernel (one warp per row), timed below and used
-                nowhere in the port.
+                them the three sources of ``src/repro_torch/csrc/yardsticks/``,
+                the parent designs of the CSR kernel (``spmv_csr_vector``, a
+                warp per row), the SpMSpV kernel (``spmspv_csc_warp``, a warp
+                per frontier entry) and the ELL kernel (``spmv_ell_warp``, a
+                warp per row over every stored slot), timed below and used
+                nowhere in the port; and the constants the host plans share
+                with the kernels (``plan_constants``).
 3. ``check``    every hand-written kernel against its plain PyTorch version
                 and a float64 host product on the card, over six schedules,
                 at the shapes the served path gives it; a disagreement beyond
@@ -35,11 +39,22 @@ no network. Phases, each printing one JSON object on a line of its own:
                 timed) and the bf16 error on webgraph's hub row beside the
                 parent's. The fused kernel runs on the stream ``lower_fused``
                 makes from a forced four-block plan of ``hetero``, the BCSR
-                kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel on the
-                ``CscEll`` of ``webgraph`` at n = 14,011 for five frontiers
-                (its largest column, 1 %, 10 % and 50 % of the columns, all
-                of them), each beside the library's CSR product and the CSR
-                kernel on the same matrix and x. The SELL kernel B3 runs
+                kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel B6 on
+                the ``CscEll`` of ``webgraph`` at n = 14,011 for six
+                frontiers (its largest column, 1 %, 10 % and 50 % of the
+                columns, all of them, its 16 longest columns), twice each
+                (float atomics: each within tolerance), each beside its
+                parent design (in turns), the library's CSR product and the
+                CSR kernel on the same matrix and x, with its plan (lanes and
+                slots per piece, further pieces, warps, CTAs), its read
+                counts against the host twin, a sweep of launches (lanes per
+                piece, piece size; checked twice, timed) and the zeroing of y alone (``memset_ms``). The ELL
+                kernel B2 runs twice per schedule (bit for bit), beside its
+                parent design (in turns) at each schedule, reports the launch
+                its plan chose (lanes per row, CTAs, the plane slots its
+                padding stop reads) and runs at every other lane count
+                (checked, twice, timed, read counts against the host twin).
+                The SELL kernel B3 runs
                 twice per schedule (bit for bit: no atomics), reports the
                 launch its plan chose (threads per row P, slices per CTA,
                 CTAs, the elements its padding stop reads against the
@@ -95,7 +110,9 @@ no network. Phases, each printing one JSON object on a line of its own:
                 ``main`` in-process (power, ``--adaptive-spmspv``). SpMSpV
                 launches must equal the solves' SpMSpV matvecs, CSR launches
                 their SpMV matvecs. Then a host-clock breakdown of one
-                iteration (copies, kernel, numpy step).
+                iteration (copies, plan, kernel, numpy step; the SpMSpV
+                wrapper in turns with the parent's: two pageable copies, the
+                parent kernel).
 9. ``lm``       ``qwen3-0.6b`` at its published width (28 layers, d 1,024,
                 d_ff 3,072, vocabulary 151,936; fp32 params, bf16 compute),
                 random weights from a seeded generator on the card, the
@@ -144,10 +161,11 @@ is not 0; without a CUDA device the script exits at once with code 2 and
 prints no result.
 
 Tolerances (scaled by max |reference|, as the package's tests do): 1e-4 for
-float32 accumulation (summation order differs; the fused kernel adds with
-float atomics, so its low bits also vary from run to run), 3e-2 for bfloat16
-accumulation (every product and running sum is rounded to 8 significand
-bits; the plain version rounds products the same way but sums in float32).
+float32 accumulation (summation order differs; the fused and SpMSpV kernels
+add with float atomics, so their low bits also vary from run to run), 3e-2
+for bfloat16 accumulation (every product and running sum is rounded to 8
+significand bits; the plain version rounds products the same way but sums
+in float32).
 """
 
 from __future__ import annotations
@@ -194,6 +212,7 @@ from repro_torch.kernels.common import (  # noqa: E402
     KernelSchedule,
     block_segments,
     ceil_to,
+    check_operand,
     sm_count,
 )
 from repro_torch.kernels.csr import (  # noqa: E402
@@ -207,10 +226,15 @@ from repro_torch.kernels.csr import (  # noqa: E402
     csr_spmv_plain,
 )
 from repro_torch.kernels.ell import (  # noqa: E402
+    ELL_WARPS_PER_CTA,
     SPMM_CHUNK,
     SPMM_WARPS_PER_CTA,
+    _ell_launch,
     _spmm_launch,
+    ell_launch_plan,
     ell_live_width,
+    ell_plan_choices,
+    ell_slots_read,
     ell_spmm,
     ell_spmm_plain,
     ell_spmv,
@@ -237,11 +261,19 @@ from repro_torch.kernels.sell import (  # noqa: E402
     sell_spmv_plain,
 )
 from repro_torch.kernels.spmspv import (  # noqa: E402
+    SPMSPV_CTA_WARPS,
+    SPMSPV_SLOTS,
+    _spmspv_launch,
     col_nnz,
     csc_from_dense,
     csc_spmspv,
     csc_spmspv_kernel,
     csc_spmspv_plain,
+    served_plan,
+    spmspv_grid,
+    spmspv_launch_plan,
+    spmspv_pieces,
+    spmspv_slots_read,
 )
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import solve as launch_solve  # noqa: E402
@@ -342,16 +374,27 @@ _ZERO = ObjectiveValues(0.0, 0.0, 0.0, 0.0)
 
 # B1: the launches its sweep runs at each matrix beside the plan (rows per
 # row CTA, whose warps are min(rows, 8), x accumulators per lane; then the
-# hub threshold and the chunk at the plan's rows and unroll); the parent
-# design (one warp per row, no hub split) is built from csrc/yardsticks/ and
-# timed on the same inputs
+# hub threshold and the chunk at the plan's rows and unroll)
 B1_ROWS = (2, 4, 8, 16, 64)
 B1_UNROLLS = (1, 2, 4, 8)
 B1_HUB_ROWS = (256, 4096)
 B1_CHUNKS = (4096, 65536)
-PARENT_SOURCE = os.path.join(HERE, "src", "repro_torch", "csrc", "yardsticks",
-                             "spmv_csr_vector.cu")
-PARENT = {}  # "fn": the parent's launch entry, "log": its build log
+# the parent designs of B1 (a warp per row), B6 (a warp per frontier entry)
+# and B2 (a warp per row over every stored slot), built from csrc/yardsticks/
+# beside the port's kernels and timed on the same inputs: (source, argtypes
+# of its <source>_launch)
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+YARDSTICKS = {
+    "csr": ("spmv_csr_vector", [_VP] * 5 + [_CI] * 4 + [_VP]),
+    "spmspv": ("spmspv_csc_warp", [_VP] * 5 + [_CI] * 5 + [_VP]),
+    "ell": ("spmv_ell_warp", [_VP] * 4 + [_CI] * 5 + [_VP]),
+}
+YARDSTICK_DIR = os.path.join(HERE, "src", "repro_torch", "csrc", "yardsticks")
+PARENT = {}  # kernel: the parent design's launch entry
+PARENT_LOG = {}  # kernel: its build log
+# B6: the launches its sweep runs beside the plan's, (lanes per piece, piece
+# slots): one trip at every lane count, then pieces of two and four trips
+B6_LAUNCHES = ((4, 32), (8, 64), (16, 128), (32, 256), (32, 512), (32, 1024))
 
 # lm phase: qwen3-0.6b as published (28 layers, d 1,024, d_ff 3,072, vocab
 # 151,936; fp32 params, bf16 compute), FFNs pruned to 5 % and served sparse
@@ -628,6 +671,12 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
             per_schedule[sched_tag(sched)]["bit_identical"] = True
             launch[sched_tag(sched)] = {**sell_design(mat),
                                         "by_plan": sell_sweep(mat, x, sched, y_p, tol)}
+        if fmt == "ell":
+            per_schedule[sched_tag(sched)].update(
+                bit_identical=True, **against_parent(kern, ell_parent_call(mat, x, sched), y_k,
+                                                     "b2"))
+            launch[sched_tag(sched)] = {**ell_design(mat, sched),
+                                        "by_plan": ell_sweep(mat, x, sched, y_p, y_k, tol)}
         if fmt == "csr":
             per_schedule[sched_tag(sched)]["bit_identical"] = True
             launch[sched_tag(sched)] = b1_design(mat, sched)
@@ -654,8 +703,11 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
             if fmt == "bcsr":
                 entry["yardsticks"] = block_yardsticks(mat, entry["segments"])
             if fmt == "csr":
-                entry.update(b1_against_parent(kern, parent_call(mat, x, sched), y_k))
+                entry.update(against_parent(kern, parent_call(mat, x, sched), y_k))
                 launch["by_shape"] = b1_sweep(mat, x, sched, y_p, tol)
+            if fmt == "ell":
+                entry.update({k: per_schedule[sched_tag(sched)][k]
+                              for k in ("parent_ms", "parent_err_vs_b2", "in_turns_ms")})
         del mat
     entry["max_abs_err"] = worst
     entry["tolerance"] = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -716,35 +768,113 @@ def sell_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tenso
     return out
 
 
+# ------------------------------------------------------------ B2 (ELL) design
+def ell_design(mat, sched: KernelSchedule) -> dict:
+    """The launch B2's plan chose for prepared ELL planes: lanes per row,
+    rows per warp and per CTA, CTAs; beside it the live and the stored plane
+    slots and the slots its padding stop reads (host twin)."""
+    R, W = mat.data.shape
+    plan = ell_launch_plan(R, W, sm_count(DEVICE))
+    live = ell_live_width(mat.data).cpu()
+    return {**plan, "slots_live": int(live.sum()), "slots_stored": R * W,
+            "slots_read_modelled": ell_slots_read(live, W, plan, sched.unroll)}
+
+
+def ell_parent_call(mat, x: torch.Tensor, sched: KernelSchedule):
+    """One call of the parent B2 (``csrc/yardsticks/spmv_ell_warp.cu``) on
+    prepared ELL planes at ``sched``, as its wrapper made it: allocate y,
+    launch. Timed beside B2, used nowhere in the port."""
+    R, W = mat.data.shape
+
+    def call():
+        y = torch.empty(R, dtype=torch.float32, device=DEVICE)
+        err = PARENT["ell"](mat.data.data_ptr(), mat.cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+                            R, W, sched.rows_per_block, sched.unroll,
+                            int(sched.accum_dtype == "bfloat16"),
+                            torch.cuda.current_stream(DEVICE).cuda_stream)
+        kbuild.check_launch(err, "parent B2")
+        return y
+    return call
+
+
+def ell_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tensor,
+              y_kernel: torch.Tensor, tol: float) -> dict:
+    """B2 at its plan and at every other lane count through the launch
+    helper (the wrapper's launch counter does not move): against the plain
+    version, twice (same bits, and the wrapper's bits at the plan's lane
+    count), timed, and once more with the kernel's read counts on, whose
+    sum (``slots_read``) must equal the stop rule's host twin
+    (``slots_read_modelled``, ``ell_slots_read``)."""
+    R, W = mat.data.shape
+    ref = y_plain.reshape(-1).cpu().numpy()
+    live = ell_live_width(mat.data).cpu()
+    plan0 = ell_launch_plan(R, W, sm_count(DEVICE))
+    out = {}
+    for plan in ell_plan_choices(R, W, sm_count(DEVICE)):
+        tag = f"G{plan['lanes']}"
+        first = _ell_launch(mat.data, mat.cols, x, plan, sched)
+        y = _ell_launch(mat.data, mat.cols, x, plan, sched)
+        reads = torch.zeros(plan["warps"], dtype=torch.int32, device=DEVICE)
+        y_counted = _ell_launch(mat.data, mat.cols, x, plan, sched, reads)
+        torch.cuda.synchronize()
+        err = scaled_err(y.cpu().numpy(), ref)
+        same = torch.equal(first, y) and torch.equal(y, y_counted)
+        if plan == plan0:
+            same = same and torch.equal(y, y_kernel)
+        if not (err <= tol and same):
+            raise AssertionError(f"ell kernel at {tag}: vs plain {err:.3e}, same bits {same}")
+        read = int(reads.sum())
+        modelled = ell_slots_read(live, W, plan, sched.unroll)
+        if read != modelled:
+            raise AssertionError(f"ell kernel at {tag} read {read} plane slots, "
+                                 f"its host twin says {modelled}")
+        out[tag] = {"ctas": plan["ctas"], "warps": plan["warps"], "err_vs_plain": err,
+                    "slots_read": read, "slots_read_modelled": modelled,
+                    "ms": timed(lambda: _ell_launch(mat.data, mat.cols, x, plan, sched))}
+    return out
+
+
 # ------------------------------------------------------- B1 (CSR) design
-def start_parent_build():
-    """Start ``nvcc`` for the parent design of B1 (``csrc/yardsticks/``), with the
-    port's flags, beside the port's builds; (process or None, library)."""
-    h = hashlib.sha256()
-    for f in (PARENT_SOURCE, kbuild.CSRC_DIR / "common.cuh"):
-        with open(f, "rb") as fh:
-            h.update(fh.read())
-    h.update(" ".join(kbuild.NVCC_FLAGS).encode())
-    out = kbuild.build_dir() / f"spmv_csr_vector-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return None, out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC_DIR), "-o", str(out),
-           PARENT_SOURCE]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out
+def start_yardstick_builds() -> list:
+    """Start ``nvcc`` for every parent design in ``csrc/yardsticks/``, with
+    the port's flags, beside the port's builds; [(kernel, process or None,
+    library)]."""
+    started = []
+    for fmt, (name, _) in YARDSTICKS.items():
+        src = os.path.join(YARDSTICK_DIR, f"{name}.cu")
+        h = hashlib.sha256()
+        for f in (src, kbuild.CSRC_DIR / "common.cuh"):
+            with open(f, "rb") as fh:
+                h.update(fh.read())
+        h.update(" ".join(kbuild.NVCC_FLAGS).encode())
+        out = kbuild.build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
+        if out.exists():
+            started.append((fmt, None, out))
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-I", str(kbuild.CSRC_DIR), "-o",
+               str(out), src]
+        started.append((fmt, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True), out))
+    return started
 
 
-def finish_parent_build(proc, out) -> None:
-    log = ""
-    if proc is not None:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {PARENT_SOURCE}:\n{log}")
-    fn = ctypes.CDLL(str(out)).spmv_csr_vector_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-    fn.restype = ci
-    PARENT.update(fn=fn, log=log)
+def finish_yardstick_builds(started: list) -> None:
+    errors = []
+    for fmt, proc, out in started:  # wait for all, so none is left running
+        name, argtypes = YARDSTICKS[fmt]
+        log = ""
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for yardsticks/{name}.cu:\n{log}")
+                continue
+        fn = getattr(ctypes.CDLL(str(out)), f"{name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = _CI
+        PARENT[fmt], PARENT_LOG[fmt] = fn, log
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def parent_call(mat, x: torch.Tensor, sched: KernelSchedule):
@@ -753,10 +883,10 @@ def parent_call(mat, x: torch.Tensor, sched: KernelSchedule):
     in the port."""
     def call():
         y = torch.empty(mat.shape[0], dtype=torch.float32, device=DEVICE)
-        err = PARENT["fn"](mat.data.data_ptr(), mat.indices.data_ptr(), mat.indptr.data_ptr(),
-                           x.data_ptr(), y.data_ptr(), mat.shape[0], sched.rows_per_block,
-                           sched.unroll, int(sched.accum_dtype == "bfloat16"),
-                           torch.cuda.current_stream(DEVICE).cuda_stream)
+        err = PARENT["csr"](mat.data.data_ptr(), mat.indices.data_ptr(), mat.indptr.data_ptr(),
+                            x.data_ptr(), y.data_ptr(), mat.shape[0], sched.rows_per_block,
+                            sched.unroll, int(sched.accum_dtype == "bfloat16"),
+                            torch.cuda.current_stream(DEVICE).cuda_stream)
         kbuild.check_launch(err, "parent B1")
         return y
     return call
@@ -772,16 +902,17 @@ def b1_design(mat, sched: KernelSchedule) -> dict:
     return {**plan, **csr_hub_pieces(mat.indptr, plan)}
 
 
-def b1_against_parent(kern, parent, y_kernel: torch.Tensor) -> dict:
-    """The parent design on the same inputs: checked against B1, then
-    timed in turns (parent, B1, B1, parent) within this call."""
+def against_parent(kern, parent, y_kernel: torch.Tensor, who: str = "b1") -> dict:
+    """The parent design on the same inputs: checked against the kernel's
+    ``y``, then timed in turns (parent, kernel, kernel, parent) within this
+    call."""
     y_parent = parent()
     torch.cuda.synchronize()
     ref = y_kernel.cpu().numpy()
     err = scaled_err(y_parent.cpu().numpy(), ref)
     order = [timed(parent), timed(kern), timed(kern), timed(parent)]
-    return {"parent_ms": (order[0] + order[3]) / 2, "parent_err_vs_b1": err,
-            "in_turns_ms": {"parent": [order[0], order[3]], "b1": [order[1], order[2]]}}
+    return {"parent_ms": (order[0] + order[3]) / 2, f"parent_err_vs_{who}": err,
+            "in_turns_ms": {"parent": [order[0], order[3]], who: [order[1], order[2]]}}
 
 
 def b1_sweep(mat, x: torch.Tensor, sched: KernelSchedule, y_plain: torch.Tensor,
@@ -850,10 +981,12 @@ def b1_hub_bf16(web: np.ndarray, draws: int = 16) -> dict:
 
 
 def check_constants() -> dict:
-    """The constants B8's, B3's and B1's host plans share with their
-    kernels, as the built kernels export them; raises where Python's differ."""
+    """The constants B8's, B3's, B1's, B6's and B2's host plans share with
+    their kernels, as the built kernels export them; raises where Python's
+    differ."""
     got = {}
-    for source, n in (("spmm_ell", 2), ("spmv_sell", 1), ("spmv_csr", 3)):
+    for source, n in (("spmm_ell", 2), ("spmv_sell", 1), ("spmv_csr", 3), ("spmspv_csc", 2),
+                      ("spmv_ell", 1)):
         out = (ctypes.c_int * n)()
         fn = getattr(kbuild.load_library(source), f"{source}_constants")
         fn.restype = None
@@ -861,7 +994,9 @@ def check_constants() -> dict:
         got[source] = list(out)
     want = {"spmm_ell": [SPMM_CHUNK, SPMM_WARPS_PER_CTA],
             "spmv_sell": [SELL_MAX_THREADS],
-            "spmv_csr": [CSR_MAX_THREADS, CSR_MAX_HUBS, CSR_ROUND]}
+            "spmv_csr": [CSR_MAX_THREADS, CSR_MAX_HUBS, CSR_ROUND],
+            "spmspv_csc": [SPMSPV_SLOTS, SPMSPV_CTA_WARPS[-1]],
+            "spmv_ell": [ELL_WARPS_PER_CTA]}
     if got != want:
         raise AssertionError(f"kernel constants {got} differ from the host plans' {want}")
     return got
@@ -882,15 +1017,20 @@ def kernel_registers(logs: dict, source: str, pattern: str) -> dict:
 # template instances named by their parameters: B4/B7 accumulator and br;
 # B3 accumulator and unroll; B8 accumulator, lanes per slot, columns per lane
 # (the served instances, without the read count); B1 kernel (rows: the row
-# path alone; spmv: rows and chunks), accumulator and unroll
+# path alone; spmv: rows and chunks), accumulator and unroll; B2 accumulator,
+# lanes per row and unroll, B6 accumulator and lanes per piece (served
+# instances)
 INSTANCE = {
     "csr": r"csr_(rows|spmv)_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "bell": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "bcsr": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "sell": r"sell_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "spmm": r"ell_spmm_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
+    "ell": r"ell_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
+    "spmspv": r"csc_spmspv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELb0E",
 }
-TWICE = ("csr", "sell", "bell", "bcsr")  # kernels whose two launches must give the same bits
+# kernels whose two launches must give the same bits
+TWICE = ("csr", "ell", "sell", "bell", "bcsr")
 
 
 # ----------------------------------------------- block kernels B4 / B7 design
@@ -1154,22 +1294,102 @@ def time_composites(session, part_pool, fps, x_of) -> dict:
 def frontiers_of(counts: np.ndarray, rng) -> list[tuple[str, np.ndarray]]:
     """The check's frontiers (sorted column indices, as a solver's
     ``flatnonzero`` gives them): the single largest column; 1 %, 10 % (the
-    policy's threshold) and 50 % of the columns drawn at random; all of them."""
+    policy's threshold) and 50 % of the columns drawn at random; all of
+    them; the 16 longest columns."""
     n_cols = counts.size
     out = [("largest_column", np.array([int(np.argmax(counts))], np.int32))]
     for pct in (1, 10, 50):
         pick = rng.choice(n_cols, size=n_cols * pct // 100, replace=False)
         out.append((f"{pct}%", np.sort(pick).astype(np.int32)))
     out.append(("full", np.arange(n_cols, dtype=np.int32)))
+    out.append(("hubs", np.sort(np.argsort(counts, kind="stable")[-16:]).astype(np.int32)))
     return out
+
+
+def staged_of(act: torch.Tensor, xv: torch.Tensor, plan: dict) -> torch.Tensor:
+    """B6's staged frontier (``[active | bits of xvals | pieces]``) on the
+    card, in a tensor of its own."""
+    pieces = torch.from_numpy(plan["pieces"].reshape(-1)).to(DEVICE)
+    return torch.cat([act, xv.view(torch.int32), pieces])
+
+
+def spmspv_parent_call(mat, act: torch.Tensor, xv: torch.Tensor, n_rows: int,
+                       sched: KernelSchedule):
+    """One call of the parent B6 (``csrc/yardsticks/spmspv_csc_warp.cu``) on
+    a prepared ``CscEll`` and a frontier on the card, as its kernel-level
+    call made it: allocate y, zero it, launch. Timed beside B6, used
+    nowhere in the port."""
+    def call():
+        y = torch.empty(n_rows + 1, dtype=torch.float32, device=DEVICE)
+        err = PARENT["spmspv"](mat.data.data_ptr(), mat.rows.data_ptr(), act.data_ptr(),
+                               xv.data_ptr(), y.data_ptr(), int(act.shape[0]), mat.width,
+                               n_rows, sched.unroll, int(sched.accum_dtype == "bfloat16"),
+                               torch.cuda.current_stream(DEVICE).cuda_stream)
+        kbuild.check_launch(err, "parent B6")
+        return y
+    return call
+
+
+def b6_plan_checks(mat, f: dict, n_rows: int, sched: KernelSchedule, y_plain: np.ndarray,
+                   tol: float) -> dict:
+    """At the served schedule, for one frontier: B6's plan (lanes per piece,
+    piece size, further pieces, warps, warps per CTA, CTAs), its read counts
+    (one launch with the kernel's own counts on: each warp's must equal the
+    host twin's pieces of that warp, their sum ``spmspv_slots_read``) and
+    every launch of ``B6_LAUNCHES`` through the launch helper (the wrapper's counter does not move): twice against
+    the plain version, timed."""
+    lens = mat.col_len_host[f["active"]]
+    act = torch.as_tensor(f["active"], device=DEVICE)
+    xv = torch.as_tensor(f["xvals"], device=DEVICE)
+    sms = sm_count(DEVICE)
+    plan = spmspv_launch_plan(lens, sms)
+    reads = torch.zeros(plan["warps"], dtype=torch.int32, device=DEVICE)
+    _spmspv_launch(mat.data, mat.rows, mat.col_len, staged_of(act, xv, plan), plan, n_rows,
+                   sched, reads)
+    per_warp = reads.cpu().numpy()
+    groups = 32 // plan["lanes"]
+    lengths = spmspv_pieces(lens, plan)[:, 2]
+    want = np.zeros(plan["warps"] * groups, np.int64)
+    want[: lengths.size] = lengths
+    want = want.reshape(plan["warps"], groups).sum(axis=1)
+    read, modelled = int(per_warp.sum()), spmspv_slots_read(lens, plan)
+    if not (np.array_equal(per_warp, want) and read == modelled == int(lens.sum())):
+        raise AssertionError(f"spmspv kernel read {read} slots at frontier {f['name']}, "
+                             f"its host twin says {modelled} (warps equal: "
+                             f"{np.array_equal(per_warp, want)})")
+    by_launch = {}
+    for lanes, piece in B6_LAUNCHES:
+        tag = f"G{lanes}_H{piece}"
+        p = spmspv_launch_plan(lens, sms, lanes, piece)
+        staged = staged_of(act, xv, p)
+        errs = []
+        for _ in range(2):
+            y = _spmspv_launch(mat.data, mat.rows, mat.col_len, staged, p, n_rows, sched)
+            errs.append(scaled_err(y[:n_rows].cpu().numpy(), y_plain))
+        if max(errs) > tol:
+            raise AssertionError(f"spmspv kernel at {tag}, frontier {f['name']}: "
+                                 f"vs plain {errs}")
+        by_launch[tag] = {
+            "extra": p["extra"], "warps": p["warps"], "ctas": p["ctas"], "err_vs_plain": errs,
+            "ms": timed(lambda: _spmspv_launch(mat.data, mat.rows, mat.col_len, staged, p,
+                                               n_rows, sched))}
+    return {"plan": {k: plan[k] for k in ("lanes", "piece", "extra", "warps", "warps_per_cta",
+                                          "ctas")},
+            "longest_column": int(lens.max(initial=0)), "slots_read": read,
+            "slots_read_modelled": modelled, "by_launch": by_launch}
 
 
 def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
     """Hold the SpMSpV kernel against its plain version and a float64 host
-    product over the six schedules and five frontiers of ``webgraph``; at
-    ``time_schedule`` (the one the solver's SpMSpV twin runs) time every
-    frontier beside its byte bound, the plain version, the library's CSR
-    product of the same x and the CSR kernel on the same matrix and x."""
+    product over the six schedules and six frontiers of ``webgraph``, two
+    launches each (float atomics: each within tolerance, not the same
+    bits). At 10 % time every schedule beside the parent design (in turns);
+    at ``time_schedule`` (the one the solver's SpMSpV twin runs) time every
+    frontier beside the parent design, its byte bound, the plain version,
+    the library's CSR product of the same x and the CSR kernel on the same
+    matrix and x, with B6's plan, read counts and launch sweep; and the
+    zeroing of y alone. B6 is timed through its launch helper on a staged
+    frontier: the zeroing of y and the kernel, as the parent."""
     import scipy.sparse
 
     rng = np.random.default_rng(SEED + 13)
@@ -1192,7 +1412,8 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
     if time_schedule not in schedules:
         schedules.append(time_schedule)
     mats, worst, per_schedule, timed_rows = {}, 0.0, {}, []
-    t_conv = None
+    t_conv = memset_ms = None
+    sms = sm_count(DEVICE)
     for sched in schedules:
         if sched.nnz_tile not in mats:  # the storage depends on nnz_tile only
             t0 = time.perf_counter()
@@ -1205,24 +1426,42 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
         for f in fronts:
             act = torch.as_tensor(f["active"], device=DEVICE)
             xv = torch.as_tensor(f["xvals"], device=DEVICE)
-            args = (mat.data, mat.rows, act, xv, n_rows, sched)
-            y_k = csc_spmspv_kernel(*args)
+            plain_args = (mat.data, mat.rows, act, xv, n_rows, sched)
+            runs = [csc_spmspv_kernel(mat.data, mat.rows, mat.col_len, act, xv, n_rows, sched)
+                    for _ in range(2)]
             torch.cuda.synchronize()  # a fault during the run surfaces here
-            yk = y_k[:n_rows].cpu().numpy()
-            yp = csc_spmspv_plain(*args)[:n_rows].cpu().numpy()
-            err, err_host = scaled_err(yk, yp), scaled_err(yk, f["ref64"])
-            if not (np.isfinite(yk).all() and err <= tol and err_host <= tol):
-                raise AssertionError(
-                    f"spmspv kernel disagrees on webgraph, frontier {f['name']}, {sched}: "
-                    f"vs plain {err:.3e}, vs host float64 {err_host:.3e}, tolerance {tol:.0e}")
+            yp = csc_spmspv_plain(*plain_args)[:n_rows].cpu().numpy()
+            errs = []
+            for y_k in runs:
+                yk = y_k[:n_rows].cpu().numpy()
+                err, err_host = scaled_err(yk, yp), scaled_err(yk, f["ref64"])
+                if not (np.isfinite(yk).all() and err <= tol and err_host <= tol):
+                    raise AssertionError(
+                        f"spmspv kernel disagrees on webgraph, frontier {f['name']}, {sched}: "
+                        f"vs plain {err:.3e}, vs host float64 {err_host:.3e}, "
+                        f"tolerance {tol:.0e}")
+                errs.append((err, err_host))
+            err, err_host = max(e[0] for e in errs), max(e[1] for e in errs)
             worst = max(worst, err)
+            plan = spmspv_launch_plan(mat.col_len_host[f["active"]], sms)
+            staged = staged_of(act, xv, plan)
+
+            def kern():
+                return _spmspv_launch(mat.data, mat.rows, mat.col_len, staged, plan, n_rows,
+                                      sched)
+            parent = spmspv_parent_call(mat, act, xv, n_rows, sched)
             if f["name"] == "10%":
                 tag = sched_tag(sched) + ("_par" if sched.dimension_semantics == "parallel" else "")
                 per_schedule[tag] = {
-                    "ms": timed(lambda: csc_spmspv_kernel(*args)), "err_vs_plain": err,
-                    "err_vs_host": err_host}
+                    "ms": timed(kern), "err_vs_plain": err, "err_vs_host": err_host,
+                    **against_parent(kern, parent, runs[0], "b6")}
             if sched != time_schedule:
                 continue
+            if memset_ms is None:  # the zeroing of y alone: a launch with no warp
+                empty = torch.zeros(0, dtype=torch.int32, device=DEVICE)
+                memset_ms = timed(lambda: _spmspv_launch(
+                    mat.data, mat.rows, mat.col_len, empty, spmspv_grid(0, 0, 32, 32 * SPMSPV_SLOTS, sms),
+                    n_rows, sched))
             k, touched = int(f["active"].size), int(counts[f["active"]].sum())
             nbytes = touched * 8 + k * 8 + (n_rows + 1) * 4  # what skipping padding must move
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * touched / FP32_FLOPS
@@ -1231,8 +1470,9 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
             y_b1 = csr_spmv(csr.data, csr.indices, csr.indptr, x_dev, sched).cpu().numpy()
             row = {"frontier": f["name"], "k": k, "density": k / n_cols,
                    "nnz_touched": touched, "padded_slots_of_frontier": k * mat.width,
-                   "ms": timed(lambda: csc_spmspv_kernel(*args)),
-                   "plain_ms": timed(lambda: csc_spmspv_plain(*args), reps=5),
+                   "ms": timed(kern),
+                   **against_parent(kern, parent, runs[0], "b6"),
+                   "plain_ms": timed(lambda: csc_spmspv_plain(*plain_args), reps=5),
                    "bound_ms": 1e3 * max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
                    "library_ms": timed(lambda: lib @ x_dev),
@@ -1242,7 +1482,8 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
                    "b1_plain_ms": timed(lambda: csr_spmv_plain(
                        csr.data, csr.indices, csr.indptr, x_dev, sched), reps=5),
                    "b1_err": scaled_err(y_b1, f["ref64"]),
-                   "err_vs_plain": err, "err_vs_host": err_host}
+                   "err_vs_plain": err, "err_vs_host": err_host,
+                   **b6_plan_checks(mat, f, n_rows, sched, yp, tol)}
             if max(row["library_err"], row["b1_err"]) > 1e-4:
                 raise AssertionError(f"library or CSR product wrong on webgraph: {row}")
             timed_rows.append(row)
@@ -1254,8 +1495,9 @@ def check_spmspv(web: np.ndarray, time_schedule: KernelSchedule) -> dict:
         "nnz": int(counts.sum()),
         "schedule": sched_tag(time_schedule),
         "frontier": "10%",
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
-                                "library_ms", "b1_ms", "b1_plain_ms")},
+        **{k: head[k] for k in ("ms", "parent_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                                "library_ms", "b1_ms", "b1_plain_ms", "plan")},
+        "memset_ms": memset_ms,
         "library": "torch.sparse_csr_tensor(A) @ x (x dense, the frontier's values)",
         "cscell": {"width": mat.width, "nbytes": mat.nbytes, "max_col_nnz": int(counts.max()),
                    "dangling_columns": int((counts == 0).sum()),
@@ -1342,12 +1584,103 @@ def host_ms(fn, reps: int = 30) -> float:
     return 1e3 * float(np.median(out))
 
 
+def host_only_ms(fn, reps: int = 300) -> float:
+    """Median host-clock ms of ``fn``, a host function (no device work)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(out))
+
+
+def in_turns(parent, change, rounds: int = 6, reps: int = 200) -> dict:
+    """``host_ms`` of two callables in turns (parent, change, change,
+    parent) over ``rounds``: each one's medians, and the rounds in which
+    the change's pair took longer than the parent's."""
+    got = {"parent": [], "change": []}
+    slower = 0
+    for _ in range(rounds):
+        p0, c0, c1, p1 = (host_ms(fn, reps) for fn in (parent, change, change, parent))
+        got["parent"] += [p0, p1]
+        got["change"] += [c0, c1]
+        slower += (c0 + c1) > (p0 + p1)
+    return {"parent_ms": float(np.median(got["parent"])),
+            "change_ms": float(np.median(got["change"])),
+            "change_slower_in_rounds": f"{slower}/{rounds}", "runs_ms": got}
+
+
+def parent_csc_spmspv(mat, active, xvals, sched: KernelSchedule) -> torch.Tensor:
+    """The parent's ``csc_spmspv`` and kernel-level call, step for step: its
+    checks, two pageable copies of the frontier, the parent kernel
+    (``spmspv_parent_call``). A yardstick for the wrapper's host time, used
+    nowhere in the port."""
+    n_rows, n_cols = mat.shape
+    a = np.ascontiguousarray(active, dtype=np.int32).reshape(-1)
+    v = np.ascontiguousarray(xvals, dtype=np.float32).reshape(-1)
+    if a.shape != v.shape:
+        raise ValueError("frontier mismatch")
+    if a.size == 0:
+        return torch.zeros(n_rows, dtype=torch.float32, device=DEVICE)
+    if a.min() < 0 or a.max() >= n_cols:
+        raise ValueError("frontier indices out of range")
+    a_dev, v_dev = torch.from_numpy(a).to(DEVICE), torch.from_numpy(v).to(DEVICE)
+    for t, name, dtype, ndim in ((mat.data, "data", torch.float32, 2),
+                                 (mat.rows, "rows", torch.int32, 2),
+                                 (a_dev, "active", torch.int32, 1),
+                                 (v_dev, "xvals", torch.float32, 1)):
+        check_operand(t, name, dtype, ndim, DEVICE)
+    if mat.rows.shape != mat.data.shape or mat.width % sched.nnz_tile:
+        raise ValueError("CscEll arrays disagree")
+    with torch.cuda.device(DEVICE):
+        y = spmspv_parent_call(mat, a_dev, v_dev, n_rows, sched)()
+    return y[:n_rows]
+
+
+def power_in_turns(session, web: np.ndarray, rounds: int = 8) -> dict:
+    """Power iteration on ``webgraph`` (as the solve phase runs it) in turns
+    with the parent wrapper and kernel served in B6's place (parent, B6, B6,
+    parent): the SpMSpV matvec p50 and the iteration p50 of each solve."""
+    import repro_torch.kernels.spmspv as spmspv_mod
+
+    served = spmspv_mod.csc_spmspv
+
+    def solve(parent: bool) -> dict:
+        if parent:  # ops.spmspv imports csc_spmspv at each call
+            spmspv_mod.csc_spmspv = parent_csc_spmspv
+        try:
+            res = power_iteration(session, web, tol=0.0, max_iters=POWER_ITERS,
+                                  policy=AdaptiveSpmvPolicy())
+            torch.cuda.synchronize()
+        finally:
+            spmspv_mod.csc_spmspv = served
+        row = solve_row(res)
+        return {"spmspv_p50_ms": row["matvec_p50_ms"].get("spmspv"),
+                "iter_p50_ms": row["iter_p50_ms"], "spmspv_calls": row["spmspv_calls"]}
+
+    got = {"parent": [], "change": []}
+    for _ in range(rounds):
+        for who in ("parent", "change", "change", "parent"):
+            got[who].append(solve(who == "parent"))
+    return {who: {"spmspv_p50_ms": float(np.median([r["spmspv_p50_ms"] for r in rs])),
+                  "iter_p50_ms": float(np.median([r["iter_p50_ms"] for r in rs])),
+                  "runs": rs} for who, rs in got.items()}
+
+
 def iteration_breakdown(session, web: np.ndarray, power_res, policy) -> dict:
     """Host-clock split of one power-iteration step on ``webgraph``: the
     numpy step, the copies and the kernel call (launch + wait), for an SpMV
-    iteration and for an SpMSpV one at the 10 % frontier. Kernels and plans
-    come from the session's memo (hits). Run after the solve phase's
-    launches are read: these launches are timing, not the main path."""
+    iteration and for an SpMSpV one at the 10 % frontier; for the latter
+    also the launch plan, the launch with and without its copy of the
+    frontier. Then B6's wrapper in turns with the parent's
+    (``parent_csc_spmspv``) at frontiers of 1, 5 and 10 % of the columns;
+    the plan's two ways of listing pieces (a loop, numpy) at frontiers of
+    1 % to all columns; and power iteration in turns with the parent served
+    in B6's place. Kernels and plans come from the session's memo (hits).
+    Run after the solve phase's launches are read: these launches are
+    timing, not the main path."""
+    import repro_torch.kernels.spmspv as spmspv_mod
     from repro_torch.solvers.iterate import IterativeSolver
 
     solver = IterativeSolver(session, web, name="breakdown", policy=policy)
@@ -1356,12 +1689,19 @@ def iteration_breakdown(session, web: np.ndarray, power_res, policy) -> dict:
     n = web.shape[1]
     rng = np.random.default_rng(SEED + 21)
     x = rng.normal(size=n).astype(np.float32)
-    act = np.sort(rng.choice(n, size=n // 10, replace=False)).astype(np.int32)
+    fronts = {f"{pct}%": np.sort(rng.choice(n, size=n * pct // 100, replace=False)).astype(
+        np.int32) for pct in (1, 5, 10, 50, 100)}
+    act = fronts["10%"]
     xv = x[act]
     x_dev = torch.as_tensor(x, device=DEVICE)
-    act_dev, xv_dev = torch.as_tensor(act, device=DEVICE), torch.as_tensor(xv, device=DEVICE)
     y_dev = spmv_k(x_dev)
     mat = spmspv_k.mat
+    sched = spmspv_k.schedule
+    sms = sm_count(DEVICE)
+    plan = spmspv_launch_plan(mat.col_len_host[act], sms)
+    staged = staged_of(torch.as_tensor(act, device=DEVICE), torch.as_tensor(xv, device=DEVICE),
+                       plan)
+    frontier = np.concatenate([act, xv.view(np.int32), plan["pieces"].reshape(-1)])
     y = y_dev.cpu().numpy().astype(np.float64)
     xs = x.astype(np.float64)
 
@@ -1374,25 +1714,47 @@ def iteration_breakdown(session, web: np.ndarray, power_res, policy) -> dict:
         float(np.linalg.norm(y - lam * xs))
         np.flatnonzero(xn.astype(np.float32))
 
-    step_s = []
-    for _ in range(30):
-        t0 = time.perf_counter()
-        numpy_step()
-        step_s.append(time.perf_counter() - t0)
-    step_ms = 1e3 * float(np.median(step_s))
+    wrapper = {}
+    for name in ("1%", "5%", "10%"):
+        a = fronts[name]
+        v = x[a]
+        wrapper[name] = {"k": int(a.size), "extra": served_plan(mat, a, sms)["extra"],
+                         **in_turns(lambda: parent_csc_spmspv(mat, a, v, sched),
+                                    lambda: spmspv_k.call_frontier(a, v))}
+    few = spmspv_mod.SPMSPV_FEW_LONG
+    plan_paths = {}
+    for name, a in fronts.items():
+        lens = mat.col_len_host[a]
+        p = spmspv_launch_plan(lens, sms)
+        row = {"k": int(a.size), "long_entries": int((lens > p["piece"]).sum()),
+               "extra": p["extra"]}
+        for path, limit in (("loop", 1 << 30), ("numpy", -1)):
+            spmspv_mod.SPMSPV_FEW_LONG = limit
+            try:
+                row[f"{path}_ms"] = host_only_ms(lambda: spmspv_launch_plan(lens, sms))
+            finally:
+                spmspv_mod.SPMSPV_FEW_LONG = few
+        plan_paths[name] = row
     return {
         "spmv": {"h2d_x_ms": host_ms(lambda: torch.as_tensor(x, device=DEVICE)),
                  "kernel_call_ms": host_ms(lambda: spmv_k(x_dev)),
                  "d2h_y_ms": host_ms(lambda: y_dev.cpu()),
                  "matvec_ms": host_ms(lambda: solver.matvec(x))},
         "spmspv_10pct": {
-            "h2d_frontier_ms": host_ms(lambda: (torch.from_numpy(act).to(DEVICE),
-                                                torch.from_numpy(xv).to(DEVICE))),
-            "kernel_call_ms": host_ms(lambda: csc_spmspv_kernel(
-                mat.data, mat.rows, act_dev, xv_dev, mat.shape[0], spmspv_k.schedule)),
-            "wrapper_ms": host_ms(lambda: spmspv_k.call_frontier(act, xv)),
+            "plan_ms": host_only_ms(lambda: served_plan(mat, act, sms)),
+            "parent_h2d_frontier_ms": host_ms(lambda: (torch.from_numpy(act).to(DEVICE),
+                                                       torch.from_numpy(xv).to(DEVICE))),
+            "kernel_call_ms": host_ms(lambda: _spmspv_launch(
+                mat.data, mat.rows, mat.col_len, staged, plan, mat.shape[0], sched)),
+            "kernel_call_with_copy_ms": host_ms(lambda: _spmspv_launch(
+                mat.data, mat.rows, mat.col_len, frontier, plan, mat.shape[0], sched)),
+            "wrapper_ms": wrapper["10%"]["change_ms"],
+            "parent_wrapper_ms": wrapper["10%"]["parent_ms"],
         },
-        "numpy_step_ms": step_ms,
+        "wrapper_in_turns": wrapper,
+        "plan_paths_ms": plan_paths,
+        "power_in_turns": power_in_turns(session, web),
+        "numpy_step_ms": host_only_ms(numpy_step, reps=30),
         "power_matvec_p50_ms": solve_row(power_res)["matvec_p50_ms"],
         "power_iter_p50_ms": 1e3 * power_res.iter_p50_s(),
     }
@@ -1609,7 +1971,7 @@ def check_b1_ffn(engine, seen: dict) -> list[dict]:
         row.update(bit_identical=True, ms=timed(kern), plain_ms=timed(plain, reps=5),
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
         library_call("csr", A, kernel.mat, x, ref64[:, -1], row)
-        row.update(b1_against_parent(kern, parent_call(kernel.mat, x, kernel.schedule), y_k))
+        row.update(against_parent(kern, parent_call(kernel.mat, x, kernel.schedule), y_k))
         row["launch"] = {**b1_design(kernel.mat, kernel.schedule),
                          "by_shape": b1_sweep(kernel.mat, x, kernel.schedule, plain(), 1e-4)}
         rows.append(row)
@@ -2019,17 +2381,18 @@ def main() -> None:
          cuda=torch.version.cuda, nvcc=nvcc_version, card=smi,
          device=torch.cuda.get_device_name(0))
 
-    parent_build = start_parent_build()  # B1's parent design, built beside
+    yardsticks = start_yardstick_builds()  # the parent designs, built beside
     built = kbuild.build_all()
-    finish_parent_build(*parent_build)
+    finish_yardstick_builds(yardsticks)
     ptxas = {n: [{"kernel": k["function"][:60], "registers": k["registers"],
                   "spill_bytes": k["spill_bytes"]} for k in kbuild.ptxas_usage(log)]
              for n, log in built["log"].items()}
     emit("build", seconds=built["seconds"], built=built["built"],
          dir=os.path.relpath(str(kbuild.build_dir()), HERE), ptxas=ptxas,
-         parent_b1={"source": os.path.relpath(PARENT_SOURCE, HERE),
-                    "ptxas": [[k["registers"], k["spill_bytes"]]
-                              for k in kbuild.ptxas_usage(PARENT["log"])]},
+         parents={f: {"source": f"src/repro_torch/csrc/yardsticks/{YARDSTICKS[f][0]}.cu",
+                      "ptxas": [[k["registers"], k["spill_bytes"]]
+                                for k in kbuild.ptxas_usage(PARENT_LOG[f])]}
+                  for f in YARDSTICKS},
          plan_constants=check_constants())
     registers = {n: sorted({k["registers"] for k in ks}) for n, ks in ptxas.items()}
 
@@ -2088,6 +2451,7 @@ def main() -> None:
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
                   for f, e in checked.items()},
          sell_launch=checked["sell"].pop("launch"),
+         ell_launch=checked["ell"].pop("launch"),
          csr_launch={checked["csr"]["matrix"]: checked["csr"].pop("launch"),
                      checked["csr"]["at_webgraph"]["matrix"]:
                          checked["csr"]["at_webgraph"].pop("launch")})

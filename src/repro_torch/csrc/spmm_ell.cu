@@ -41,7 +41,7 @@
 //   without counting code.
 // * Fixed-order sums, no atomics. A lane adds its slots in order; the
 //   groups of a warp are added by a butterfly over the group bits (at k = 1
-//   this is the ELL SpMV kernel's sum at unroll 1); a split row's WPR
+//   this is the ELL SpMV kernel's sum at 32 lanes per row, unroll 1); a split row's WPR
 //   partials go through shared memory and warp 0 of the row adds them in
 //   warp order. Two launches give the same bits.
 //

@@ -39,6 +39,7 @@ is what the Auto-SpMV compile-time mode predicts per input matrix.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -165,8 +166,10 @@ def block_segments(nbr: int, blocks_per_row: int, n_sms: int) -> int:
     return s
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
+    """Streaming multiprocessors of a CUDA device (read once per device: the
+    launch plans ask on every call)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

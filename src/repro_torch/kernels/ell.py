@@ -2,11 +2,14 @@
 
 ``ell_spmv`` computes ``y[r] = sum_k data[r, k] * x[cols[r, k]]`` over
 row-major ``(R, W)`` planes whose padding slots hold value 0 / column 0. On
-a CUDA tensor it launches ``csrc/spmv_ell.cu`` (a CTA owns
-``rows_per_block`` rows, a warp per row, lanes stride the width with
-``unroll`` accumulators each) or raises; on a CPU tensor — and only then —
-it takes ``ell_spmv_plain``. Shapes must be tile-aligned as for the
-reference kernel: ``R % rows_per_block == 0`` and ``W % nnz_tile == 0``.
+a CUDA tensor it launches ``csrc/spmv_ell.cu`` or raises; on a CPU tensor —
+and only then — it takes ``ell_spmv_plain``. Shapes must be tile-aligned as
+for the reference kernel: ``R % rows_per_block == 0`` and ``W % nnz_tile ==
+0``. Its launch comes from ``ell_launch_plan`` (shapes and the card's SM
+count only): a group of ``lanes`` lanes owns a row and reads
+``lanes * unroll`` consecutive slots of it per step, each lane with
+``unroll`` accumulators; ``rows_per_block`` and ``nnz_tile`` only align the
+planes.
 
 ``ell_spmm`` is the multi-vector form over the same planes,
 ``Y[r, j] = sum_k data[r, k] * X[cols[r, k], j]`` with a row-major dense
@@ -19,12 +22,13 @@ warps, and a warp works on several rows where R exceeds what the card
 holds at once. ``rows_per_block`` and ``nnz_tile`` only align the planes;
 ``schedule.unroll`` is not read, as in the reference's SpMM kernel.
 
-Precondition of the SpMM kernel (not of the plain version): each row
-stores its nonzeros first and its padding (value 0, column 0) after, as
-``ell_from_dense`` writes them. The kernel stops after the 32-slot chunk
-that holds a row's first zero value (``ell_live_width`` is the rule's host
-twin) and gathers no X row for a padding slot, so it differs from summing
-every slot only where ``X[0]`` holds a non-finite value.
+Precondition of both kernels (not of the plain versions): each row stores
+its nonzeros first and its padding (value 0, column 0) after, as
+``ell_from_dense`` writes them. The SpMV kernel stops after the step that
+holds a row's first zero value, the SpMM kernel after the 32-slot chunk
+that holds it (``ell_live_width`` is the rule's host twin); neither gathers
+x (an X row) for a padding slot, so each differs from summing every slot
+only where ``x[0]`` (``X[0]``) holds a non-finite value.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand, sm_count
+
+# B2's launch (csrc/spmv_ell.cu): a group of G lanes per row, a CTA of 8
+# warps; the kernel's ``spmv_ell_constants`` returns the warps per CTA, and
+# its entry point refuses a grid that does not cover the rows by this rule.
+ELL_WARPS_PER_CTA = 8
+ELL_LANE_GROUPS = (4, 8, 16, 32)  # lanes per row, each a template instance
+# the most lanes per row until the grid holds this many warps per SM
+ELL_TARGET_WARPS_PER_SM = 32
 
 # B8's launch (csrc/spmm_ell.cu): a chunk is the 32 slots a warp's lanes read
 # with one coalesced load each; a CTA holds 8 warps. The kernel's
@@ -81,28 +93,88 @@ def _check_planes(data, cols, operand, name: str, ndim: int, schedule: KernelSch
     return R, W
 
 
+def ell_launch_plan(R: int, W: int, n_sms: int) -> dict:
+    """B2's launch from integers only: planes ``(R, W)`` and the card's SM
+    count. ``lanes`` (G): the most of ``ELL_LANE_GROUPS`` while ``R * G``
+    lanes stay within ``ELL_TARGET_WARPS_PER_SM`` warps per SM and G within
+    the stored width; a warp holds ``32 / G`` rows, a CTA
+    ``ELL_WARPS_PER_CTA`` warps."""
+    R, W, n_sms = int(R), int(W), int(n_sms)
+    if R < 0 or W < 0 or n_sms < 1:
+        raise ValueError(f"no ELL launch for R={R}, W={W}, n_sms={n_sms}")
+    G = ELL_LANE_GROUPS[0]
+    for nxt in ELL_LANE_GROUPS[1:]:
+        if R * nxt > ELL_TARGET_WARPS_PER_SM * 32 * n_sms or nxt > max(W, 1):
+            break
+        G = nxt
+    return ell_grid(R, G)
+
+
+def ell_grid(R: int, G: int) -> dict:
+    """The plan's dict for G lanes per row: rows per warp and per CTA, CTAs
+    and warps."""
+    rows_per_cta = ELL_WARPS_PER_CTA * (32 // G)
+    ctas = -(-R // rows_per_cta)
+    return {"lanes": G, "rows_per_warp": 32 // G, "rows_per_cta": rows_per_cta,
+            "ctas": ctas, "warps": ctas * ELL_WARPS_PER_CTA}
+
+
+def ell_plan_choices(R: int, W: int, n_sms: int) -> list[dict]:
+    """The plan first, then every other lane count."""
+    plan = ell_launch_plan(R, W, n_sms)
+    return [plan] + [ell_grid(R, G) for G in ELL_LANE_GROUPS if G != plan["lanes"]]
+
+
+def ell_slots_read(live: torch.Tensor, W: int, plan: dict, unroll: int) -> int:
+    """Plane slots B2 reads under ``plan`` for rows of ``live`` live slots:
+    a row's group reads steps of ``lanes * unroll`` consecutive slots and
+    stops after the step that holds the row's first padding slot, or at the
+    end of the planes."""
+    step = plan["lanes"] * unroll
+    steps = torch.div(live, step, rounding_mode="floor") + 1
+    return int(torch.clamp(steps * step, max=W).sum())
+
+
 def ell_spmv(
     data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, schedule: KernelSchedule
 ) -> torch.Tensor:
-    """SpMV over padded ELL planes ``data/cols: (R, W)``; returns ``y: (R,)``."""
+    """SpMV over padded ELL planes ``data/cols: (R, W)``; returns ``y: (R,)``.
+
+    The kernel's precondition (the module's note): each row's nonzeros come
+    before its padding. ``ell_from_dense`` writes planes so; the wrapper does
+    not check planes from elsewhere, on which the kernel drops what follows
+    a stored zero."""
     R, W = _check_planes(data, cols, x, "x", 1, schedule)
     dev = x.device
     if dev.type == "cpu":
         return ell_spmv_plain(data, cols, x, schedule)
     if dev.type != "cuda":
         raise RuntimeError(f"ell_spmv has no kernel for device {dev}")
+    y = _ell_launch(data, cols, x, ell_launch_plan(R, W, sm_count(dev)), schedule)
+    ell_spmv.launches += 1
+    return y
+
+
+def _ell_launch(data, cols, x, plan: dict, schedule: KernelSchedule, reads=None) -> torch.Tensor:
+    """Launch B2 under ``plan`` on x's CUDA device and current stream and
+    return ``y: (R,)``. ``reads``: ``None``, or an int32 tensor of
+    ``plan["warps"]`` entries in which each warp writes the plane slots it
+    loaded. The launch counter is the wrapper's: ``chip_smoke.py`` runs the
+    plan's alternatives through here without moving it."""
     from repro_torch.kernels.build import bind, check_launch
 
+    dev = x.device
+    R, W = data.shape
     y = torch.empty((R,), dtype=torch.float32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = bind("spmv_ell", "spmv_ell_launch", [vp] * 4 + [ci] * 5 + [vp])
+    fn = bind("spmv_ell", "spmv_ell_launch", [vp] * 4 + [ci] * 6 + [vp] * 2)
     with torch.cuda.device(dev):
         err = fn(data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), R, W,
-                 schedule.rows_per_block, schedule.unroll,
+                 plan["lanes"], plan["ctas"], schedule.unroll,
                  int(schedule.accum_dtype == "bfloat16"),
+                 None if reads is None else reads.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "ell_spmv")
-    ell_spmv.launches += 1
     return y
 
 
@@ -187,7 +259,8 @@ def spmm_plan_choices(R: int, W: int, k: int, n_sms: int) -> list[dict]:
 def ell_live_width(data: torch.Tensor) -> torch.Tensor:
     """Live slots of each ELL row, ``(R,)`` int64: the index of its first
     zero value, else ``W``. Rows store their nonzeros first, so this is the
-    row's length; B8 stops after the chunk that holds it."""
+    row's length; B2 stops after the step and B8 after the chunk that holds
+    it."""
     R, W = data.shape
     if not W:
         return torch.zeros(R, dtype=torch.int64, device=data.device)

@@ -174,8 +174,8 @@ def test_kernel_level_call_with_spill_entries_matches_reference_pallas():
     ref = np.asarray(ref_csc_spmspv_pallas(ref_mat.data, ref_mat.rows, act, xv, n_rows,
                                            RefSchedule()))
     mat = csc_from_dense(dense, device="cpu")
-    y = csc_spmspv_kernel(mat.data, mat.rows, torch.from_numpy(act), torch.from_numpy(xv),
-                          n_rows, KernelSchedule())
+    y = csc_spmspv_kernel(mat.data, mat.rows, mat.col_len, torch.from_numpy(act),
+                          torch.from_numpy(xv), n_rows, KernelSchedule())
     assert y.shape == (n_rows + 1,) and float(y[n_rows]) == 0.0
     np.testing.assert_allclose(y.numpy()[:n_rows], ref[:n_rows], rtol=1e-5, atol=1e-5)
     plain = csc_spmspv_plain(mat.data, mat.rows, torch.from_numpy(act), torch.from_numpy(xv),
@@ -187,12 +187,12 @@ def test_no_plain_fallback_off_the_cpu():
     """Only a CPU tensor takes the plain version; any other device launches
     its kernel or raises (here: a meta tensor, which has no kernel)."""
     mat = csc_from_dense(_matrix(seed=1), device="cpu")
-    data, rows = mat.data.to("meta"), mat.rows.to("meta")
+    data, rows, col_len = mat.data.to("meta"), mat.rows.to("meta"), mat.col_len.to("meta")
     act = torch.zeros(1, dtype=torch.int32, device="meta")
     xv = torch.ones(1, dtype=torch.float32, device="meta")
     before = csc_spmspv.launches
     with pytest.raises(RuntimeError, match="no kernel"):
-        csc_spmspv_kernel(data, rows, act, xv, mat.shape[0], KernelSchedule())
+        csc_spmspv_kernel(data, rows, col_len, act, xv, mat.shape[0], KernelSchedule())
     assert csc_spmspv.launches == before  # CPU and refused calls never count
     csc_spmspv(mat, np.array([0], np.int32), np.array([1.0], np.float32))
     assert csc_spmspv.launches == before
