@@ -14,13 +14,15 @@ no network. Phases, each printing one JSON object on a line of its own:
 2. ``build``    compiles ``src/repro_torch/csrc/*.cu`` (eight sources) for
                 sm_90a (one ``nvcc`` per source, in parallel) and reports the
                 seconds and each kernel's registers and spills (ptxas); beside
-                them the three sources of ``src/repro_torch/csrc/yardsticks/``,
+                them the four sources of ``src/repro_torch/csrc/yardsticks/``,
                 the parent designs of the CSR kernel (``spmv_csr_vector``, a
                 warp per row), the SpMSpV kernel (``spmspv_csc_warp``, a warp
-                per frontier entry) and the ELL kernel (``spmv_ell_warp``, a
-                warp per row over every stored slot), timed below and used
-                nowhere in the port; and the constants the host plans share
-                with the kernels (``plan_constants``).
+                per frontier entry), the ELL kernel (``spmv_ell_warp``, a
+                warp per row over every stored slot) and the fused kernel
+                (``spmv_fused_scan``, a CTA per stored tile, a float atomic
+                per run of rows), timed below and used nowhere in the port;
+                and the constants the host plans share with the kernels
+                (``plan_constants``).
 3. ``check``    every hand-written kernel against its plain PyTorch version
                 and a float64 host product on the card, over six schedules,
                 at the shapes the served path gives it; a disagreement beyond
@@ -37,8 +39,13 @@ no network. Phases, each printing one JSON object on a line of its own:
                 (parent, B1, B1, parent), a sweep of launches (rows per CTA x
                 unroll, then the hub threshold and the chunk; checked, twice,
                 timed) and the bf16 error on webgraph's hub row beside the
-                parent's. The fused kernel runs on the stream ``lower_fused``
-                makes from a forced four-block plan of ``hetero``, the BCSR
+                parent's. The fused kernel B5 runs on the stream ``lower_fused``
+                makes from a forced four-block plan of ``hetero``, twice per
+                schedule (bit for bit: no atomics on y), with its plan
+                (pieces, one CTA each; the largest row window; rows shared by
+                several pieces) and the global stores a counting launch makes
+                against the plan's count (``fused_launch``), beside its parent
+                design (in turns); the BCSR
                 kernel on ``pkustk04`` at n = 8,000, the SpMSpV kernel B6 on
                 the ``CscEll`` of ``webgraph`` at n = 14,011 for six
                 frontiers (its largest column, 1 %, 10 % and 50 % of the
@@ -89,7 +96,14 @@ no network. Phases, each printing one JSON object on a line of its own:
                 seconds. Then a forced four-block plan of ``hetero`` through
                 both executors. Block-kernel launches must add up to the
                 blocks served, fused launches to the fused requests plus the
-                forced run. Then ``block_case``: B4 and B7 on the largest
+                forced run. Then ``composites``: every served composite and
+                the forced one through B5 as in phase 3 (plan, counted
+                writes, bit for bit, against the plain version), timed in
+                turns with its parent design, beside the fused executor's
+                call, the sequential executor, the library's CSR product and
+                the bound over what B5 reads (``stream_bound_ms``: over the
+                stream's own arrays), and at plans of other piece lengths
+                (``by_piece``). Then ``block_case``: B4 and B7 on the largest
                 BELL row block the served plans launch (or the forced plan's),
                 at its plan's schedule, checked and timed as in phase 3, with
                 the fill of the blocks read.
@@ -161,8 +175,8 @@ is not 0; without a CUDA device the script exits at once with code 2 and
 prints no result.
 
 Tolerances (scaled by max |reference|, as the package's tests do): 1e-4 for
-float32 accumulation (summation order differs; the fused and SpMSpV kernels
-add with float atomics, so their low bits also vary from run to run), 3e-2
+float32 accumulation (summation order differs; the SpMSpV kernel adds with
+float atomics, so its low bits also vary from run to run), 3e-2
 for bfloat16 accumulation (every product and running sum is rounded to 8
 significand bits; the plain version rounds products the same way but sums
 in float32).
@@ -243,7 +257,23 @@ from repro_torch.kernels.ell import (  # noqa: E402
     spmm_plan_choices,
     spmm_slots_read,
 )
-from repro_torch.kernels.fused import fused_spmv, fused_spmv_plain, lower_fused  # noqa: E402
+from repro_torch.kernels.fused import (  # noqa: E402
+    FUSED_ALIGN,
+    FUSED_CTAS_PER_SM,
+    FUSED_GROUP_INTS,
+    FUSED_PAD_ROW,
+    FUSED_PIECE_INTS,
+    FUSED_STEPS,
+    FUSED_THREADS,
+    FUSED_WINDOW,
+    _fused_launch,
+    fused_launch_plan,
+    fused_plan_summary,
+    fused_spmv,
+    fused_spmv_plain,
+    lower_fused,
+    plan_buffers,
+)
 from repro_torch.kernels.ops import (  # noqa: E402
     compile_spmv,
     matrix_fingerprint,
@@ -379,15 +409,17 @@ B1_ROWS = (2, 4, 8, 16, 64)
 B1_UNROLLS = (1, 2, 4, 8)
 B1_HUB_ROWS = (256, 4096)
 B1_CHUNKS = (4096, 65536)
-# the parent designs of B1 (a warp per row), B6 (a warp per frontier entry)
-# and B2 (a warp per row over every stored slot), built from csrc/yardsticks/
-# beside the port's kernels and timed on the same inputs: (source, argtypes
-# of its <source>_launch)
+# the parent designs of B1 (a warp per row), B6 (a warp per frontier entry),
+# B2 (a warp per row over every stored slot) and B5 (a CTA per stored tile,
+# a float atomic per run of rows, y zeroed first), built from
+# csrc/yardsticks/ beside the port's kernels and timed on the same inputs:
+# (source, argtypes of its <source>_launch)
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 YARDSTICKS = {
     "csr": ("spmv_csr_vector", [_VP] * 5 + [_CI] * 4 + [_VP]),
     "spmspv": ("spmspv_csc_warp", [_VP] * 5 + [_CI] * 5 + [_VP]),
     "ell": ("spmv_ell_warp", [_VP] * 4 + [_CI] * 5 + [_VP]),
+    "fused": ("spmv_fused_scan", [_VP] * 6 + [_CI] * 5 + [_VP]),
 }
 YARDSTICK_DIR = os.path.join(HERE, "src", "repro_torch", "csrc", "yardsticks")
 PARENT = {}  # kernel: the parent design's launch entry
@@ -395,6 +427,9 @@ PARENT_LOG = {}  # kernel: its build log
 # B6: the launches its sweep runs beside the plan's, (lanes per piece, piece
 # slots): one trip at every lane count, then pieces of two and four trips
 B6_LAUNCHES = ((4, 32), (8, 64), (16, 128), (32, 256), (32, 512), (32, 1024))
+
+# B5: the piece lengths its sweep runs at each composite beside the plan's
+B5_PIECES = (512, 2048, 8192)
 
 # lm phase: qwen3-0.6b as published (28 layers, d 1,024, d_ff 3,072, vocab
 # 151,936; fp32 params, bf16 compute), FFNs pruned to 5 % and served sparse
@@ -558,10 +593,10 @@ def kernel_calls(fmt: str, mat, x: torch.Tensor, schedule: KernelSchedule):
     if fmt == "fused":
         args = (mat.data, mat.cols, mat.rows, mat.tile_map, x, mat.n_rows, mat.tile)
         kw = dict(unroll=mat.unroll, accum_dtype=mat.accum_dtype)
-        ins = (mat.data, mat.cols, mat.rows, mat.tile_map, x)
         fl = 2 * int((mat.rows < mat.n_rows).sum())  # real entries, not padding
-        return ((lambda: fused_spmv(*args, **kw)), (lambda: fused_spmv_plain(*args, **kw)),
-                ins, mat.n_rows + 1, fl, None)
+        return ((lambda: fused_spmv(*args, **kw, plan=mat.launch_plan)),
+                (lambda: fused_spmv_plain(*args, **kw)), b5_inputs(mat, x), mat.n_rows + 1, fl,
+                None)
     raise ValueError(fmt)
 
 
@@ -680,6 +715,8 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
         if fmt == "csr":
             per_schedule[sched_tag(sched)]["bit_identical"] = True
             launch[sched_tag(sched)] = b1_design(mat, sched)
+        if fmt == "fused":
+            launch[sched_tag(sched)] = b5_design(mat, x, y_k, y_p, tol)
         if sched == time_schedule:
             bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
             entry = {
@@ -708,6 +745,10 @@ def check_kernel(fmt: str, name: str, dense: np.ndarray, time_schedule: KernelSc
             if fmt == "ell":
                 entry.update({k: per_schedule[sched_tag(sched)][k]
                               for k in ("parent_ms", "parent_err_vs_b2", "in_turns_ms")})
+            if fmt == "fused":
+                entry.update(against_parent(kern, fused_parent_call(mat, x), y_k, "b5"))
+                entry["stream_bound_ms"] = bound(
+                    (mat.data, mat.cols, mat.rows, mat.tile_map, x), out_elems, flops)[0]
         del mat
     entry["max_abs_err"] = worst
     entry["tolerance"] = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -980,13 +1021,62 @@ def b1_hub_bf16(web: np.ndarray, draws: int = 16) -> dict:
     return out
 
 
+# ------------------------------------------------------- B5 (fused) design
+def b5_inputs(f, x: torch.Tensor) -> tuple:
+    """What B5 reads of a lowered stream: values and columns, the plan's
+    16-bit window rows (in place of the 4-byte row ids) and packed array,
+    and x."""
+    packed, window_rows = plan_buffers(f.launch_plan, x.device)
+    return (f.data, f.cols, window_rows, packed, x)
+
+
+def fused_parent_call(f, x: torch.Tensor):
+    """One call of the parent B5 (``csrc/yardsticks/spmv_fused_scan.cu``) on
+    a lowered stream, as its wrapper made it: allocate y, launch (its entry
+    zeroes y first). Timed beside B5, used nowhere in the port."""
+    def call():
+        y = torch.empty(f.n_rows + 1, dtype=torch.float32, device=DEVICE)
+        err = PARENT["fused"](f.data.data_ptr(), f.cols.data_ptr(), f.rows.data_ptr(),
+                              f.tile_map.data_ptr(), x.data_ptr(), y.data_ptr(), f.n_tiles,
+                              f.tile, f.n_rows, f.unroll, int(f.accum_dtype == "bfloat16"),
+                              torch.cuda.current_stream(DEVICE).cuda_stream)
+        kbuild.check_launch(err, "parent B5")
+        return y
+    return call
+
+
+def b5_design(f, x: torch.Tensor, y_kernel: torch.Tensor, y_plain: torch.Tensor,
+              tol: float) -> dict:
+    """B5's plan for a lowered stream and what the card shows of it, through
+    the launch helper (the wrapper's counter does not move): the plan's
+    pieces (one CTA each), piece length, largest window, shared rows and
+    groups; the global stores a counting launch makes (``writes_counted``)
+    against the plan's count; a second launch's bits; the spill slot 0; the
+    kernel against the plain version."""
+    plan = f.launch_plan
+    kw = dict(unroll=f.unroll, accum_dtype=f.accum_dtype)
+    counts = torch.zeros(plan["ctas"], dtype=torch.int32, device=DEVICE)
+    y_counted = _fused_launch(f.data, f.cols, x, plan, writes=counts, **kw)
+    y_again = _fused_launch(f.data, f.cols, x, plan, **kw)
+    torch.cuda.synchronize()
+    writes = int(counts.sum())
+    same = torch.equal(y_kernel, y_again) and torch.equal(y_kernel, y_counted)
+    err = scaled_err(y_kernel[:-1].cpu().numpy(), y_plain.reshape(-1)[:-1].cpu().numpy())
+    spill = float(y_kernel[-1])
+    if writes != plan["writes"] or not same or not err <= tol or spill != 0.0:
+        raise AssertionError(f"fused kernel: writes {writes} (plan {plan['writes']}), same bits "
+                             f"{same}, vs plain {err:.3e}, spill slot {spill}")
+    return {**fused_plan_summary(plan), "tiles": f.n_tiles, "tile": f.tile,
+            "writes_counted": writes, "bit_identical": same, "err_vs_plain": err}
+
+
 def check_constants() -> dict:
-    """The constants B8's, B3's, B1's, B6's and B2's host plans share with
+    """The constants B8's, B3's, B1's, B6's, B2's and B5's host plans share with
     their kernels, as the built kernels export them; raises where Python's
     differ."""
     got = {}
     for source, n in (("spmm_ell", 2), ("spmv_sell", 1), ("spmv_csr", 3), ("spmspv_csc", 2),
-                      ("spmv_ell", 1)):
+                      ("spmv_ell", 1), ("spmv_fused", 8)):
         out = (ctypes.c_int * n)()
         fn = getattr(kbuild.load_library(source), f"{source}_constants")
         fn.restype = None
@@ -996,7 +1086,9 @@ def check_constants() -> dict:
             "spmv_sell": [SELL_MAX_THREADS],
             "spmv_csr": [CSR_MAX_THREADS, CSR_MAX_HUBS, CSR_ROUND],
             "spmspv_csc": [SPMSPV_SLOTS, SPMSPV_CTA_WARPS[-1]],
-            "spmv_ell": [ELL_WARPS_PER_CTA]}
+            "spmv_ell": [ELL_WARPS_PER_CTA],
+            "spmv_fused": [FUSED_THREADS, FUSED_WINDOW, FUSED_STEPS, FUSED_PIECE_INTS,
+                           FUSED_GROUP_INTS, FUSED_CTAS_PER_SM, FUSED_PAD_ROW, FUSED_ALIGN]}
     if got != want:
         raise AssertionError(f"kernel constants {got} differ from the host plans' {want}")
     return got
@@ -1019,7 +1111,7 @@ def kernel_registers(logs: dict, source: str, pattern: str) -> dict:
 # (the served instances, without the read count); B1 kernel (rows: the row
 # path alone; spmv: rows and chunks), accumulator and unroll; B2 accumulator,
 # lanes per row and unroll, B6 accumulator and lanes per piece (served
-# instances)
+# instances); B5 accumulator and the write count (0: the served instance)
 INSTANCE = {
     "csr": r"csr_(rows|spmv)_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
     "bell": r"_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)E",
@@ -1028,9 +1120,10 @@ INSTANCE = {
     "spmm": r"ell_spmm_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
     "ell": r"ell_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELi(\d+)ELb0E",
     "spmspv": r"csc_spmspv_kernelIN4spmv\d+Acc(F32|BF16)ELi(\d+)ELb0E",
+    "fused": r"fused_spmv_kernelIN4spmv\d+Acc(F32|BF16)ELb([01])E",
 }
 # kernels whose two launches must give the same bits
-TWICE = ("csr", "ell", "sell", "bell", "bcsr")
+TWICE = ("csr", "ell", "sell", "bell", "bcsr", "fused")
 
 
 # ----------------------------------------------- block kernels B4 / B7 design
@@ -1266,27 +1359,82 @@ def run_forced(dense: np.ndarray, fmts, x: np.ndarray) -> dict:
     return out
 
 
-def time_composites(session, part_pool, fps, x_of) -> dict:
-    """Per served matrix, the composite's device time by CUDA events: the
-    sequential executor (k launches and the concatenation) against the fused
-    one (one launch), beside the fused stream's byte bound. Plans and
-    kernels come from the session's caches (hits); these launches are
-    timing, not the main path, and are not counted."""
+def composite_row(seq, fused, formats, dense: np.ndarray, x: torch.Tensor,
+                  registers: dict) -> dict:
+    """One composite on the card: B5 (through the launch helper) against the
+    plain version, its plan and counted writes, two launches bit for bit;
+    then, by CUDA events with the L2 flushed, B5 in turns with its parent
+    design (parent, B5, B5, parent), the fused executor's call, the
+    sequential executor (k launches and the concatenation) and the
+    library's CSR product of the whole matrix, beside the bound over what
+    B5 reads and over the stream's own arrays. These launches are checks and
+    timings, not the main path, and are not counted."""
+    f = fused.kernel  # the executor's FusedSpmv
+    kw = dict(unroll=f.unroll, accum_dtype=f.accum_dtype)
+    kern = lambda: _fused_launch(f.data, f.cols, x, f.launch_plan, **kw)  # noqa: E731
+    y_k = kern()
+    y_p = fused_spmv_plain(f.data, f.cols, f.rows, f.tile_map, x, f.n_rows, f.tile, **kw)
+    tol = 3e-2 if f.accum_dtype == "bfloat16" else 1e-4
+    design = b5_design(f, x, y_k, y_p, tol)
+    nnz = int((f.rows < f.n_rows).sum())
+    bound_ms, bound_by, nbytes = bound(b5_inputs(f, x), f.n_rows + 1, 2 * nnz)
+    row = {"k": len(formats), "formats": list(formats), "nnz": nnz,
+           "stream_entries": int(f.data.shape[0]),
+           "unroll": f.unroll, "accum": f.accum_dtype, **design,
+           **against_parent(kern, fused_parent_call(f, x), y_k, "b5"),
+           "fused_ms": timed(lambda: fused(x)), "sequential_ms": timed(lambda: seq(x)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "stream_bound_ms": bound((f.data, f.cols, f.rows, f.tile_map, x), f.n_rows + 1,
+                                    2 * nnz)[0],
+           "registers": registers.get("bf16_0" if f.accum_dtype == "bfloat16" else "f32_0")}
+    if row["parent_err_vs_b5"] > tol:
+        raise AssertionError(f"parent B5 disagrees with B5: {row['parent_err_vs_b5']:.3e}")
+    row["by_piece"] = b5_sweep(f, x, y_p, tol)
+    library_call("fused", dense, None, x, host_product(dense, x.cpu().numpy()), row)
+    row["ms"] = sum(row["in_turns_ms"]["b5"]) / 2
+    return row
+
+
+def b5_sweep(f, x: torch.Tensor, y_plain: torch.Tensor, tol: float) -> dict:
+    """B5 over plans of other piece lengths (``B5_PIECES``) for the same
+    stream, through the launch helper: CTAs, largest window, shared rows,
+    against the plain version (another order of sums: within tolerance),
+    timed."""
+    rows, tmap = f.rows.cpu().numpy(), f.tile_map.cpu().numpy()
+    kw = dict(unroll=f.unroll, accum_dtype=f.accum_dtype)
+    ref = y_plain[:-1].cpu().numpy()
+    out = {}
+    for piece in B5_PIECES:
+        plan = fused_launch_plan(rows, tmap, f.tile, f.n_rows, sm_count(DEVICE), piece=piece)
+        plan_buffers(plan, DEVICE)
+        y = _fused_launch(f.data, f.cols, x, plan, **kw)
+        torch.cuda.synchronize()
+        err = scaled_err(y[:-1].cpu().numpy(), ref)
+        if not err <= tol:
+            raise AssertionError(f"fused kernel at pieces of {piece}: vs plain {err:.3e}")
+        out[piece] = {"ctas": plan["ctas"], "max_window": plan["max_window"],
+                      "shared_rows": plan["shared_rows"], "err_vs_plain": err,
+                      "ms": timed(lambda: _fused_launch(f.data, f.cols, x, plan, **kw))}
+    return out
+
+
+def time_composites(session, part_pool, fps, x_of, registers: dict) -> dict:
+    """Per served matrix, its served composite (plans and kernels from the
+    session's caches: hits) through ``composite_row``; then the forced
+    four-block plan of ``hetero``."""
     out = {}
     for n, dense in part_pool.items():
         x = torch.as_tensor(x_of[n], device=DEVICE)
         seq, fused = (session.partitioned_optimize(dense, max_blocks=MAX_BLOCKS, fused=f,
                                                    fingerprint=fps[n]) for f in (False, True))
-        f = fused.kernel.kernel
-        nnz = int((f.rows < f.n_rows).sum())
-        bound_ms, bound_by, nbytes = bound((f.data, f.cols, f.rows, f.tile_map, x),
-                                           f.n_rows + 1, 2 * nnz)
-        out[n] = {"k": fused.n_blocks, "formats": list(fused.plan.formats),
-                  "stream_entries": int(f.data.shape[0]), "nnz": nnz, "tiles": f.n_tiles,
-                  "tile": f.tile, "unroll": f.unroll, "accum": f.accum_dtype,
-                  "sequential_ms": timed(lambda: seq.kernel(x)),
-                  "fused_ms": timed(lambda: fused.kernel(x)),
-                  "fused_bound_ms": bound_ms, "bound_by": bound_by, "fused_bytes": nbytes}
+        out[n] = composite_row(seq.kernel, fused.kernel, fused.plan.formats, dense, x,
+                               registers)
+    dense = part_pool["hetero"]
+    plan = forced_plan(dense, FORCED_FORMATS, 4, DEFAULT_SCHEDULE)
+    x = torch.as_tensor(x_of["hetero"], device=DEVICE)
+    out["hetero_forced"] = composite_row(compile_partitioned(dense, plan, device=DEVICE),
+                                         compile_fused_partitioned(dense, plan, device=DEVICE),
+                                         plan.formats, dense, x, registers)
     return out
 
 
@@ -2452,6 +2600,7 @@ def main() -> None:
                   for f, e in checked.items()},
          sell_launch=checked["sell"].pop("launch"),
          ell_launch=checked["ell"].pop("launch"),
+         fused_launch=checked["fused"].pop("launch"),
          csr_launch={checked["csr"]["matrix"]: checked["csr"].pop("launch"),
                      checked["csr"]["at_webgraph"]["matrix"]:
                          checked["csr"]["at_webgraph"].pop("launch")})
@@ -2591,7 +2740,9 @@ def main() -> None:
             launches[k] += got[k]
     part_stats = part_session.stats.as_dict()
     fps["hetero"] = matrix_fingerprint(part_pool["hetero"])
-    composites = time_composites(part_session, part_pool, fps, x_of)
+    composites = time_composites(part_session, part_pool, fps, x_of,
+                                 kernel_registers(built["log"], SOURCE["fused"], INSTANCE["fused"]))
+    checked["fused"]["at_composites"] = composites
     bell_at_full_width = [
         {"rid": r["rid"], "matrix": r["matrix"], "rows": r["bell_blocks"]}
         for r in results["sequential"] if r["bell_blocks"]]

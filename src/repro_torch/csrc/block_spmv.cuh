@@ -36,8 +36,9 @@
 //   give the same bits on every run. With S = 1 the sum is the one the
 //   earlier one-CTA-per-block-row kernel took.
 //
-// A wait that spins for kHangCycles traps: a fault in the copy protocol ends
-// the launch with an error instead of hanging the card.
+// The mbarrier and bulk-copy helpers are common.cuh's: a wait that spins for
+// kHangCycles traps, so a fault in the copy protocol ends the launch with an
+// error instead of hanging the card.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -48,6 +49,12 @@
 namespace blockspmv {
 
 namespace cg = cooperative_groups;
+using spmv::bulk_copy;
+using spmv::mbar_arrive;
+using spmv::mbar_arrive_expect_tx;
+using spmv::mbar_init;
+using spmv::mbar_wait;
+using spmv::smem_u32;
 
 constexpr int kBlockCols = 128;                      // bc
 constexpr int kVecPerRow = kBlockCols / 4;           // 32 float4, one per lane
@@ -60,65 +67,12 @@ constexpr int kThreads = (kConsumerWarps + 1) * spmv::kWarp;  // + producer warp
 constexpr int kConsumerThreads = kConsumerWarps * spmv::kWarp;
 constexpr int kColWindow = 512;  // block columns staged in shared memory at once
 constexpr int kMaxSegments = 8;  // portable cluster size
-constexpr long long kHangCycles = 1LL << 33;  // ~5 s at the H100's clock
 
 // Dynamic shared memory: [stages][full bars][empty bars][cols][partial].
 __host__ __device__ constexpr int bars_offset() { return kStages * kChunkBytes; }
 __host__ __device__ constexpr int cols_offset() { return bars_offset() + 2 * kStages * 8; }
 __host__ __device__ constexpr int partial_offset() { return cols_offset() + kColWindow * 4; }
 __host__ __device__ constexpr int smem_bytes(int br) { return partial_offset() + br * 4; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > kHangCycles) {
-      __trap();
-    }
-  }
-}
-
-// 1-D bulk copy global -> this CTA's shared memory, completing on `bar`.
-// dst, src and bytes must be multiples of 16.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Barrier of the consumer warps only (the producer warp does not take part).
 __device__ __forceinline__ void consumer_sync() {
