@@ -159,13 +159,41 @@ no network. Phases, each printing one JSON object on a line of its own:
                 beside the byte bound, the library's CSR SpMM and k
                 separate CSR SpMVs. Then ``ops.spmm`` once per case: its
                 main path.
+11. ``observed`` the telemetry and observability layer on phase 4's tuner
+                and pool. (a) 24 requests with repeats over the pool
+                (each matrix's SLO class fixed, the four classes mixed)
+                through ``SpmvServer`` over a session with a
+                ``TelemetryRecorder`` (JSONL log), an
+                ``AdaptiveFormatSelector``, ``FeedbackLoop(refit_every=8)``,
+                ``calibrate_every=8``, an ``SloTracker``, ``anomaly=True``
+                and a ``FleetSync``, in batches of 8; every ``y`` against a
+                float64 host product; each format's launches must equal the
+                recorder's observations of it (host wall time per request:
+                launch, kernel and the copy of ``y``, as the reference
+                measures). (b) 8 requests over ``PART_POOL`` through
+                ``SpmvServer(partition=True)`` with the bandit on, over
+                phase 6's plan cache (its composites, not re-planned): per
+                request the block formats, whether each explored, and each
+                block's time; block-kernel launches must equal the blocks
+                timed plus each new composite's warm-up. (c)
+                ``calibrate()`` on both sessions: the fitted corrections per
+                format; the ``part:*`` plans evicted; a fresh session over
+                each cache path loads the file, on ``h100_sxm``. (d) A
+                second recorder over (a)'s log replays every observation.
+                (e) ``/metrics`` and ``/slo`` from ``start_metrics_server(0)``
+                on 127.0.0.1. (f) ``repro_torch.launch.serve.main`` twice
+                with every telemetry and observability flag (the second run
+                warm-starts from the log), sharing (a)'s fleet directory,
+                then LM mode with ``--slo-config``; a last fleet sync of (a)
+                absorbs the CLI instance's shard.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-10 and read just after each:
+Launch counters are set to 0 just before phases 4-11 (each path of phase 11
+on its own) and read just after each:
 a kernel of the path that was launched no time fails the run. Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
 CSR kernel's entry also carries its numbers at the LM's FFN shape), the
@@ -193,7 +221,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 import warnings
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -209,7 +239,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.features import extract_features  # noqa: E402
-from repro_torch.core.objectives import ObjectiveValues  # noqa: E402
+from repro_torch.core.objectives import CalibratedCostModel, ObjectiveValues  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bcsr import bcsr_spmv, bcsr_spmv_plain  # noqa: E402
@@ -312,9 +342,12 @@ from repro_torch.models.layers import attention, mlp  # noqa: E402
 from repro_torch.models.model import _logits  # noqa: E402
 from repro_torch.models.param import tree_map  # noqa: E402
 from repro_torch.models.sparse_linear import SparseInferenceEngine, prune_model_ffns  # noqa: E402
+from repro_torch.obs import FleetSync, SloTracker  # noqa: E402
+from repro_torch.obs.slo import SLO_CLASSES  # noqa: E402
 from repro_torch.partition import (  # noqa: E402
     BlockPlan,
     CompositePlan,
+    PartitionedSpmv,
     compile_fused_partitioned,
     compile_partitioned,
     partition_rows,
@@ -327,6 +360,12 @@ from repro_torch.sparse.generate import (  # noqa: E402
     random_matrix,
 )
 from repro_torch.sparse.registry import format_names, unregister_format  # noqa: E402
+from repro_torch.telemetry import (  # noqa: E402
+    AdaptiveFormatSelector,
+    FeedbackConfig,
+    FeedbackLoop,
+    TelemetryRecorder,
+)
 from repro_torch.train.serve import (  # noqa: E402
     BatchedServer,
     Request,
@@ -441,6 +480,10 @@ LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS, LM_REQUESTS = 4, 256, 16, 8
 SPMM_KS = (1, 4, 16, 64)
 FFN_KS = (4, 16)
 FFN_CHECK = ("g0x0.mlp.w_up", "g0x0.mlp.w_down")
+# observed phase: run-time requests with repeats over the pool, served in
+# batches (calibration, the watchdog, SLO evaluation and fleet sync run once
+# per batch), and partitioned requests over PART_POOL with the bandit on
+N_OBSERVED, OBSERVED_BATCH, N_OBSERVED_PART = 24, 8, 8
 
 
 def emit(phase: str, **payload) -> None:
@@ -2520,6 +2563,297 @@ def check_launches(phase: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{phase}: launches (got, want) differ: {bad}")
 
 
+
+# ---------------------------------------------------------------- observed
+class KeepingRecorder(TelemetryRecorder):
+    """The telemetry recorder, also keeping every record it folds, so the
+    phase can print each request's served formats and block times."""
+
+    def __init__(self, *args, **kw):
+        self.kept = []
+        super().__init__(*args, **kw)
+
+    def record(self, rec) -> None:
+        super().record(rec)
+        self.kept.append(rec)
+
+
+def per_format(fmts) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for f in fmts:
+        out[f] = out.get(f, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def disabled_arms(selector) -> list[list[str]]:
+    """[bucket, objective, format] of every arm the bandit disabled (a pick
+    whose conversion failed)."""
+    return [[b, o, f] for (b, o), cell in sorted(selector.cells().items())
+            for f, arm in sorted(cell.arms.items()) if arm.disabled]
+
+
+def check_observed_launches(what: str, got: dict, want: dict) -> None:
+    """Every block format's wrapper launched exactly as often as the path
+    ran it; a format observed but never launched fails."""
+    check_launches(what, got, {f: want.get(f, 0) for f in BLOCK_FORMATS})
+
+
+def corrections_of(model) -> dict:
+    return {f: c.as_dict() for f, c in sorted(model.corrections.items())}
+
+
+def observed_runtime(tuner, pool, tmp: Path) -> tuple[dict, dict, tuple]:
+    """(a) Observed run-time serving: recorder, bandit, feedback refits,
+    calibration every 8 requests, SLO tracking, the watchdog and fleet sync,
+    on N_OBSERVED requests with repeats over the pool; the SLO class of a
+    request is its matrix's, so the four classes are mixed and each
+    (matrix, class) cell is served several times."""
+    rec = KeepingRecorder(tmp / "telemetry.jsonl", flush_every=OBSERVED_BATCH)
+    session = AutoSpmvSession(tuner, cache_path=tmp / "runtime.json", telemetry=rec,
+                              adaptive=AdaptiveFormatSelector())
+    feedback = FeedbackLoop(rec, base_dataset=tuner.dataset,
+                            config=FeedbackConfig(refit_every=8))
+    tracker = SloTracker()
+    fleet = FleetSync(session, tmp / "fleet", instance="smoke", sync_every=OBSERVED_BATCH)
+    server = SpmvServer(session, feedback=feedback, calibrate_every=8, slo=tracker,
+                        anomaly=True, fleet=fleet)
+    rng = np.random.default_rng(SEED + 11)
+    names = list(POOL) + [str(rng.choice(POOL)) for _ in range(N_OBSERVED - len(POOL))]
+    cls_of = {n: SLO_CLASSES[i % len(SLO_CLASSES)] for i, n in enumerate(POOL)}
+    reqs = [SpmvRequest(rid=i, dense=pool[n], slo=cls_of[n],
+                        x=rng.normal(size=pool[n].shape[1]).astype(np.float32))
+            for i, n in enumerate(names)]
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in range(0, N_OBSERVED, OBSERVED_BATCH):
+        server.run(reqs[b:b + OBSERVED_BATCH])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    observed = per_format(r.fmt for r in rec.kept)
+    check_observed_launches("observed(runtime)", got, observed)
+    rows = []
+    for r, n in zip(reqs, names):
+        ref = host_product(r.dense, r.x)
+        err, tol = scaled_err(r.y, ref), tol_of(r.schedule)
+        rows.append({"rid": r.rid, "matrix": n, "slo": r.slo, "objective": r.served_objective,
+                     "fmt": r.fmt, "explore": r.exploratory, "hit": r.cache_hit,
+                     "ms": r.latency_s * 1e3, "err": err, "tol": tol})
+        if not (r.y.shape == ref.shape and np.isfinite(r.y).all() and err <= tol):
+            raise AssertionError(f"observed request {r.rid} ({n}, {r.fmt}) wrong: "
+                                 f"err {err:.3e} > {tol:.0e}")
+    summary = server.summary()
+    ms_by_fmt = {f: float(np.median([x["ms"] for x in rows if x["fmt"] == f]))
+                 for f in observed}
+    payload = {
+        "seconds": seconds, "requests": rows, "observed": observed, "launches": got,
+        "request_ms_p50": ms_by_fmt, "refits": feedback.refits,
+        "calibrations": server.calibrations,
+        "runtime_corrections": corrections_of(session.cost_model),
+        "watchdog": {"fires": server.anomaly_fires, **summary["anomaly"]},
+        "slo": {c: {k: v[k] for k in ("state", "samples", "alerts", "burn_rates")}
+                for c, v in summary["slo"]["classes"].items()},
+        "bandit": summary["adaptive"], "disabled": disabled_arms(session.adaptive),
+        "session": summary["session"],
+        "modeled_latency_s": {f: summary["energy"][f]["modeled_latency_s"]
+                              for f in summary.get("energy", {})},
+    }
+    if payload["calibrations"] != N_OBSERVED // OBSERVED_BATCH:
+        raise AssertionError(f"observed(runtime): calibrations {payload['calibrations']}")
+    return payload, got, (server, session, rec, fleet)
+
+
+def observed_partitioned(tuner, part_pool, tmp: Path, cache=None
+                         ) -> tuple[dict, dict, AutoSpmvSession]:
+    """(b) Observed partitioned serving: each block timed on its own
+    (``PartitionedSpmv.timed_call``), every (block, format) pair its own
+    bandit arm. Block-kernel launches must equal the blocks timed plus each
+    new composite's untimed warm-up run. ``cache``: the plan cache of phase
+    6's partitioned session, so the composites are the ones phase 6 served
+    (a restart over a warm cache) and their planning is not paid again."""
+    rec = KeepingRecorder()
+    session = AutoSpmvSession(tuner, cache=cache, cache_path=tmp / "partitioned.json",
+                              telemetry=rec, adaptive=AdaptiveFormatSelector())
+    server = SpmvServer(session, partition=True, max_blocks=MAX_BLOCKS)
+    rng = np.random.default_rng(SEED + 12)
+    names = list(PART_POOL) + [str(rng.choice(PART_POOL))
+                               for _ in range(N_OBSERVED_PART - len(PART_POOL))]
+    warmups = []  # the formats of each composite whose first call warmed it
+    timed_call = PartitionedSpmv.timed_call
+
+    def counting_timed_call(self, x, **kw):
+        if not self._warmed:
+            warmups.extend(self.formats)
+        return timed_call(self, x, **kw)
+
+    rows = []
+    reset_launches()
+    t0 = time.perf_counter()
+    PartitionedSpmv.timed_call = counting_timed_call
+    try:
+        for rid, n in enumerate(names):
+            dense = part_pool[n]
+            x = rng.normal(size=dense.shape[1]).astype(np.float32)
+            before = len(rec.kept)
+            (req,) = server.run([SpmvRequest(rid=rid, dense=dense, x=x, objective="latency")])
+            blocks = rec.kept[before:]
+            bf16 = any(b.schedule.get("accum_dtype") == "bfloat16" for b in blocks)
+            tol = 3e-2 if bf16 else 1e-4
+            ref = host_product(dense, x)
+            err = scaled_err(req.y, ref)
+            rows.append({"rid": rid, "matrix": n, "formats": [b.fmt for b in blocks],
+                         "explored": [b.exploratory for b in blocks],
+                         "block_ms": [b.measured_s * 1e3 for b in blocks],
+                         "request_ms": req.latency_s * 1e3, "hit": req.cache_hit,
+                         "err": err, "tol": tol})
+            if not (req.y.shape == ref.shape and np.isfinite(req.y).all() and err <= tol
+                    and req.fmt.split("+") == rows[-1]["formats"]):
+                raise AssertionError(f"observed partitioned request {rid} ({n}): {rows[-1]}")
+    finally:
+        PartitionedSpmv.timed_call = timed_call
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    timed = per_format(r.fmt for r in rec.kept)
+    want = dict(timed)
+    for f in warmups:
+        want[f] = want.get(f, 0) + 1
+    check_observed_launches("observed(partitioned)", got, want)
+    payload = {"seconds": seconds, "requests": rows, "blocks_timed": timed,
+               "warmup_blocks": per_format(warmups),
+               "launches": got, "disabled": disabled_arms(session.adaptive),
+               "explorations": session.stats.explorations,
+               "cells": len([c for c in session.adaptive.cells() if "#blk" in c[0]])}
+    return payload, got, session
+
+
+def observed_calibration(tuner, runtime_session, part_session, tmp: Path) -> dict:
+    """(c) ``calibrate()`` on both sessions: corrections per format; the
+    partitioned session's ``part:*`` plans evicted; fresh sessions over the
+    same cache paths load the files, on the H100 profile."""
+    out = {}
+    for name, session in (("runtime", runtime_session), ("partitioned", part_session)):
+        n_part = sum(e.mode.startswith("part:") for e in session.cache.entries())
+        model = session.calibrate()
+        left = sum(e.mode.startswith("part:") for e in session.cache.entries())
+        fresh = AutoSpmvSession(tuner, cache_path=session.cache_path)
+        loaded = fresh.cost_model
+        if not (isinstance(loaded, CalibratedCostModel) and loaded.hw.name == "h100_sxm"
+                and corrections_of(loaded) == corrections_of(model) and left == 0):
+            raise AssertionError(f"calibration ({name}): loaded {loaded!r}, "
+                                 f"part plans left {left}")
+        out[name] = {"corrections": corrections_of(model), "hardware": loaded.hw.name,
+                     "part_plans_evicted": n_part,
+                     "file": os.path.relpath(str(session.cache_path), str(tmp))}
+    if not out["partitioned"]["part_plans_evicted"]:
+        raise AssertionError("calibration: the partitioned session had no part:* plan")
+    return out
+
+
+def observed_endpoint(server) -> dict:
+    """(e) ``/metrics`` and ``/slo`` from the server's endpoint on 127.0.0.1."""
+    http = server.start_metrics_server(0)
+    try:
+        with urllib.request.urlopen(f"{http.url}/metrics", timeout=30) as resp:
+            metrics_body = resp.read().decode()
+        with urllib.request.urlopen(f"{http.url}/slo", timeout=30) as resp:
+            slo_body = json.loads(resp.read())
+    finally:
+        server.stop_metrics_server()
+    if "spmv_request_latency_seconds" not in metrics_body or set(slo_body["classes"]) != set(
+            SLO_CLASSES):
+        raise AssertionError("metrics endpoint: /metrics or /slo incomplete")
+    return {"metrics_lines": len(metrics_body.splitlines()),
+            "slo_states": {c: v["state"] for c, v in slo_body["classes"].items()}}
+
+
+def observed_cli(tmp: Path) -> tuple[dict, dict]:
+    """(f) ``repro_torch.launch.serve.main`` in process with every telemetry
+    and observability flag, twice (the second run warm-starts from the log,
+    the plan cache and the calibration), sharing the fleet directory of (a);
+    then LM mode with ``--slo-config``, at the reduced config."""
+    cli = tmp / "cli"
+    log = cli / "telemetry.jsonl"
+    argv = ["--spmv", "--requests", "8", "--spmv-train-matrices", "4",
+            "--spmv-cache", str(cli / "tuning.json"), "--telemetry-log", str(log),
+            "--adaptive", "--refit-every", "4", "--calibrate-every", "4",
+            "--spmv-slo", "mixed", "--anomaly", "--fleet-dir", str(tmp / "fleet"),
+            "--sync-every", "4", "--metrics-port", "0", "--profile-dir", str(cli / "profile")]
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        done = launch_serve.main(argv)
+        errs = [scaled_err(r.y, host_product(r.dense, r.x)) for r in done]
+        if any(e > tol_of(r.schedule) for e, r in zip(errs, done)):
+            raise AssertionError(f"serve CLI: errors {errs}")
+        runs.append({"requests": len(done), "hits": sum(r.cache_hit for r in done),
+                     "formats": [r.fmt for r in done], "slo": [r.slo for r in done],
+                     "logged": TelemetryRecorder(log).total_observations()})
+    spmv_s = time.perf_counter() - t0
+    if not (runs[1]["hits"] == 8 and runs[0]["logged"] == 8 and runs[1]["logged"] == 16
+            and (cli / "tuning.calibration.json").exists()
+            and (cli / "profile" / "trace.json").exists()):
+        raise AssertionError(f"serve CLI: no warm start or missing files: {runs}")
+    slo_path, summary_path = cli / "slo.json", cli / "lm-summary.json"
+    slo_path.write_text(json.dumps({"fast_window": 4, "min_samples": 2}))
+    t0 = time.perf_counter()
+    lm_done = launch_serve.main(["--arch", LM_ARCH, "--lm-sparse", "--requests", "4",
+                                 "--slots", "2", "--max-new-tokens", "4", "--max-len", "64",
+                                 "--slo", "mixed", "--slo-config", str(slo_path),
+                                 "--summary-export", str(summary_path)])
+    torch.cuda.synchronize()
+    lm_s = time.perf_counter() - t0
+    got = read_launches()
+    lm_slo = json.loads(summary_path.read_text())["slo"]
+    if not (len(lm_done) == 4 and sum(c["samples"] for c in lm_slo["classes"].values()) > 0
+            and got["csr"] > 0):
+        raise AssertionError(f"LM CLI with --slo-config: {lm_slo}")
+    return {"spmv_seconds": spmv_s, "runs": runs,
+            "profile_bytes": (cli / "profile" / "trace.json").stat().st_size,
+            "lm_seconds": lm_s, "lm_slo": {c: (v["state"], v["samples"])
+                                           for c, v in lm_slo["classes"].items()},
+            "launches": got}, got
+
+
+def run_observed_phase(tuner, pool, part_pool, part_cache=None) -> tuple[dict, dict]:
+    """Phase 11: the telemetry and observability layer on the card, over
+    the kernels the served paths run (B1-B4). ``part_cache``: phase 6's
+    partitioned plan cache, reused by (b). Returns (payload, launches)."""
+    launches = {k: 0 for k in WRAPPERS}
+    with tempfile.TemporaryDirectory(prefix="observed-") as tmp_dir:
+        tmp = Path(tmp_dir)
+        runtime, got, (server, session, rec, fleet) = observed_runtime(tuner, pool, tmp)
+        for k in launches:
+            launches[k] += got[k]
+        partitioned, got, part_session = observed_partitioned(tuner, part_pool, tmp,
+                                                              part_cache)
+        for k in launches:
+            launches[k] += got[k]
+        calibration = observed_calibration(tuner, session, part_session, tmp)
+        rec.flush()  # (d) a second recorder over the same log
+        restarted = TelemetryRecorder(rec.log_path)
+        restart = {"observations": rec.total_observations(),
+                   "replayed": restarted.total_observations(),
+                   "dropped": restarted.records_dropped}
+        if restart["replayed"] != restart["observations"] or restart["dropped"]:
+            raise AssertionError(f"restart: {restart}")
+        endpoint = observed_endpoint(server)
+        cli, got = observed_cli(tmp)
+        for k in launches:
+            launches[k] += got[k]
+        fleet_final = fleet.sync()  # absorbs the CLI instance's shard
+        if fleet_final["peers"] < 1:
+            raise AssertionError(f"fleet: no peer shard absorbed: {fleet_final}")
+        payload = {"runtime": runtime, "partitioned": partitioned,
+                   "calibration": calibration, "restart": restart, "endpoint": endpoint,
+                   "cli": cli,
+                   "fleet": {"shard": os.path.relpath(str(fleet.shard_path), tmp_dir),
+                             "syncs": fleet.syncs, "final": fleet_final,
+                             "absorbed_pulls": session.adaptive.summary()["absorbed_pulls"]}}
+    return payload, launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     t_all = time.perf_counter()
@@ -2846,6 +3180,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     emit("spmm", seconds=time.perf_counter() - t0, launches=got,
          launch=checked["spmm"].pop("launch"), cases=checked["spmm"]["cases"])
+
+    # ---- observed: telemetry, calibration, SLO, watchdog, fleet (B1-B4) --
+    t0 = time.perf_counter()
+    observed, got = run_observed_phase(tuner, pool, part_pool, part_session.cache)
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("observed", seconds=time.perf_counter() - t0, **observed)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

@@ -22,25 +22,27 @@ prepared kernel is actually absent from the process-wide kernel memo (fresh
 process after a JSON reload, LRU eviction, or a different matrix landing in
 the same feature bucket) — the gate always sees the true marginal cost.
 
-Telemetry hooks: a session optionally carries a ``TelemetryRecorder`` and an
-``AdaptiveFormatSelector`` (``repro_torch.telemetry.adaptive``; the recorder
-is a later slice). ``serve_optimize``
+Telemetry hooks (repro_torch/telemetry): a session optionally carries a
+``TelemetryRecorder`` and an ``AdaptiveFormatSelector``. ``serve_optimize``
 consults the bandit for the format to serve (the cached plan is the
 incumbent arm), ``observe`` feeds measured wall times back, and a sustained
 drift verdict invalidates the stale cache entries so the next request
-re-plans. Both collaborators are duck-typed — the session never imports a
-telemetry package, so ``repro_torch.core`` stays import-cycle-free.
+re-plans. Both collaborators are duck-typed — the session never imports the
+telemetry package at module level, so ``repro_torch.core`` stays
+import-cycle-free.
 
 Partitioned plans (``partitioned_optimize``) are cached per feature bucket
 under a ``part:max<k>`` mode and replayed onto each matrix's own row
 boundaries; with ``fused=True`` the composite runs as one launch. A
 ``cost_model=`` given to the session scores those plans.
-``compile_spmspv`` adds the sparse-frontier twin of a plan's kernel for the
-iterative solvers, booked like any other compile. Not in the port yet (see
-ROADMAP.md, queue A item 4): the adaptive/telemetry branches of
-``serve_partitioned``/``observe_partitioned`` (they need the telemetry
-recorder and its per-block arms), loading ``.calibration.json`` and
-``calibrate``.
+With a selector, ``serve_partitioned`` gives every row block its own
+bandit cell (``block_arm_bucket``) and ``observe_partitioned`` feeds each
+(block, format) arm its own measured time. ``calibrate`` fits a
+``CalibratedCostModel`` to the recorder's (predicted, measured) pairs, saves
+it as ``<cache>.calibration.json`` beside the tuning cache, and a session
+built over that cache path loads it again. ``compile_spmspv`` adds the
+sparse-frontier twin of a plan's kernel for the iterative solvers, booked
+like any other compile.
 """
 
 from __future__ import annotations
@@ -123,12 +125,10 @@ def _part_mode_key(max_blocks: int) -> str:
     return f"part:max{max_blocks}"
 
 
-def _needs_telemetry_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} with a telemetry recorder or adaptive selector needs the "
-        "telemetry recorder and its per-block arms, which are not ported yet "
-        "(ROADMAP.md, queue A item 4)"
-    )
+def _calibration_path(cache_path: Path) -> Path:
+    """Where a session persists its fitted cost-model corrections: a sibling
+    of the tuning cache, so the two artifacts travel (and restart) together."""
+    return cache_path.with_name(cache_path.stem + ".calibration.json")
 
 
 @dataclass(frozen=True)
@@ -193,16 +193,17 @@ class AutoSpmvSession:
         Optional JSON path. If the file exists the cache is warmed from it;
         ``save()`` writes back to the same path by default.
     telemetry:
-        Optional telemetry recorder (duck-typed);
+        Optional ``repro_torch.telemetry.TelemetryRecorder`` (duck-typed);
         ``observe`` forwards measured outcomes to it.
     adaptive:
-        Optional adaptive format selector (duck-typed);
+        Optional ``repro_torch.telemetry.AdaptiveFormatSelector`` (duck-typed);
         ``serve_optimize`` consults it and ``observe`` updates it, including
         drift-triggered cache invalidation.
     cost_model:
         Optional ``CostModel`` (e.g. on another ``HardwareProfile``) that
-        ``partitioned_optimize`` scores plans with; ``None`` is the
-        default ``CostModel()`` on ``H100_SXM``.
+        ``partitioned_optimize`` scores plans with; ``None`` loads
+        ``<cache>.calibration.json`` where one lies beside ``cache_path``,
+        else is the default ``CostModel()`` on ``H100_SXM``.
     """
 
     def __init__(
@@ -231,6 +232,22 @@ class AutoSpmvSession:
         self.tuner = tuner
         self.cache = cache
         self.cache_path = Path(cache_path) if cache_path is not None else None
+        if cost_model is None and self.cache_path is not None:
+            cal_path = _calibration_path(self.cache_path)
+            if cal_path.exists():
+                try:
+                    from repro_torch.core.objectives import CalibratedCostModel
+
+                    cost_model = CalibratedCostModel.load(cal_path)
+                    log.info(
+                        "loaded cost-model calibration from %s (%d formats)",
+                        cal_path,
+                        len(cost_model.corrections),
+                    )
+                except Exception as exc:  # advisory artifact: cold-start fine
+                    log.warning(
+                        "ignoring unreadable calibration %s (%s)", cal_path, exc
+                    )
         self.telemetry = telemetry
         self.adaptive = adaptive
         self.cost_model = cost_model
@@ -533,7 +550,9 @@ class AutoSpmvSession:
         onto this matrix's own nnz-balanced boundaries. Kernels compile
         through the process-wide memo, keyed per (matrix, row range).
 
-        Planning uses the session's ``cost_model`` when one is set. With
+        Planning uses the session's ``cost_model`` when one is set (a
+        ``CalibratedCostModel`` after ``calibrate``), so block-count search
+        charges the measured per-launch fixed cost. With
         ``fused=True`` the composite lowers to ONE launch
         (``compile_fused_partitioned``, one memo entry keyed on the whole
         plan) instead of per-block kernels — the fast serving path;
@@ -614,29 +633,136 @@ class AutoSpmvSession:
         max_blocks: int = 8,
         fingerprint: str | None = None,
     ) -> PartitionedResult:
-        """Partitioned serving. Without an adaptive selector this is exactly
-        ``partitioned_optimize``; with one, each block would consult its own
-        bandit cell, which needs the telemetry slice (raises until then)."""
-        if self.adaptive is not None:
-            raise _needs_telemetry_slice("serve_partitioned")
-        return self.partitioned_optimize(
+        """Partitioned serving with per-(block, format) bandit arms.
+
+        Each block's cell (``block_arm_bucket``) consults the adaptive
+        selector with the composite plan's block format as incumbent, so
+        individual blocks explore and drift independently — block 2 can be
+        re-routed to SELL while block 0 keeps its plan. An infeasible
+        exploratory pick is disabled for that block's cell and the planned
+        kernel serves instead (a probe failure is paid once, not per
+        request). Without an adaptive selector this is exactly
+        ``partitioned_optimize``."""
+        base = self.partitioned_optimize(
             dense, objective, max_blocks=max_blocks, fingerprint=fingerprint
+        )
+        if self.adaptive is None:
+            return base
+        from dataclasses import replace as dc_replace
+
+        from repro_torch.kernels.ops import compile_spmv_block
+        from repro_torch.partition.executor import PartitionedSpmv
+        from repro_torch.telemetry.adaptive import block_arm_bucket
+
+        served, exploratory, kernels = [], [], list(base.kernel.blocks)
+        for i, (bp, bk) in enumerate(zip(base.plan.blocks, base.kernel.blocks)):
+            cell = block_arm_bucket(base.bucket, bp.block.index, base.n_blocks)
+            prior = bp.modeled.latency if bp.modeled.latency > 0 else None
+            fmt, explore = self.adaptive.choose(
+                cell, objective, bp.fmt, format_names(), prior_value=prior
+            )
+            if fmt != bp.fmt:
+                try:
+                    before = kernel_memo_stats()["compiles"]
+                    swapped = compile_spmv_block(
+                        dense,
+                        bp.block.row_start,
+                        bp.block.row_end,
+                        fmt,
+                        bp.schedule,
+                        device=self.tuner.device,
+                        memo_key=base.fingerprint,
+                    )
+                    self.stats.kernel_compiles += (
+                        kernel_memo_stats()["compiles"] - before
+                    )
+                    kernels[i] = dc_replace(bk, fmt=fmt, kernel=swapped)
+                except Exception as exc:
+                    log.warning(
+                        "serve: %s infeasible for block %d of bucket %s (%s)",
+                        fmt,
+                        bp.block.index,
+                        base.bucket,
+                        exc,
+                    )
+                    self.adaptive.disable(cell, objective, fmt, fallback=bp.fmt)
+                    fmt, explore = bp.fmt, False
+            if explore:
+                self.stats.explorations += 1
+            served.append(fmt)
+            exploratory.append(explore)
+        kernel = PartitionedSpmv(kernels, base.plan.partition.n_rows)
+        return PartitionedResult(
+            fingerprint=base.fingerprint,
+            features=base.features,
+            bucket=base.bucket,
+            objective=base.objective,
+            plan=base.plan,
+            kernel=kernel,
+            mode=base.mode,
+            cache_hit=base.cache_hit,
+            served_formats=tuple(served),
+            exploratory=tuple(exploratory),
         )
 
     def observe_partitioned(
         self, result: PartitionedResult, block_times_s: list[float]
     ) -> None:
-        """Feed per-block measured wall times back. Counted always; with a
-        telemetry recorder or adaptive selector attached every (block,
-        format) pair would be its own arm, which needs the telemetry slice
-        (raises until then)."""
+        """Feed per-block measured wall times back: every (block, format)
+        pair is its own telemetry/bandit arm, and a sustained drift verdict
+        on ANY block evicts the composite plan for the bucket, so the next
+        request re-plans (and the promoted block arm seeds its incumbent)."""
         if len(block_times_s) != result.n_blocks:
             raise ValueError(
                 f"{len(block_times_s)} block times for {result.n_blocks} blocks"
             )
-        if self.telemetry is not None or self.adaptive is not None:
-            raise _needs_telemetry_slice("observe_partitioned")
         self.stats.observations += 1
+        if self.telemetry is None and self.adaptive is None:
+            return
+        from repro_torch.telemetry.adaptive import block_arm_bucket
+
+        formats = result.formats
+        for bp, fmt, dt in zip(result.plan.blocks, formats, block_times_s):
+            cell = block_arm_bucket(result.bucket, bp.block.index, result.n_blocks)
+            predicted = bp.modeled.latency if bp.modeled.latency > 0 else None
+            explored = bool(
+                result.exploratory[bp.block.index] if result.exploratory else False
+            )
+            if self.telemetry is not None:
+                self.telemetry.observe(
+                    bucket=cell,
+                    objective=result.objective,
+                    fmt=fmt,
+                    measured_s=dt,
+                    predicted_s=predicted if fmt == bp.fmt else None,
+                    plan_id=f"{cell}/{result.objective}/{result.mode}",
+                    exploratory=explored,
+                    schedule=bp.schedule.as_dict(),
+                    features=bp.block.features.dict(),
+                )
+            if self.adaptive is None:
+                continue
+            self.adaptive.update(
+                cell,
+                result.objective,
+                fmt,
+                dt,
+                predicted_s=predicted if fmt == bp.fmt else None,
+            )
+            challenger = self.adaptive.review(cell, result.objective)
+            if challenger is not None:
+                dropped = self.invalidate(result.bucket, result.objective, result.mode)
+                self.adaptive.promote(cell, result.objective, challenger)
+                log.info(
+                    "drift: block %d of bucket=%s obj=%s %s -> %s "
+                    "(%d composite plan(s) dropped)",
+                    bp.block.index,
+                    result.bucket,
+                    result.objective,
+                    fmt,
+                    challenger,
+                    dropped,
+                )
 
     # ----------------------------------------------------- telemetry serving
     def _incumbent_format(
@@ -832,6 +958,43 @@ class AutoSpmvSession:
         if dropped:
             log.info("evicted %d cached plan(s) serving format %s", dropped, fmt)
         return dropped
+
+    # ----------------------------------------------------------- calibration
+    def calibrate(self, *, save: bool = True, min_samples: int = 1):
+        """Fit a ``CalibratedCostModel`` from accumulated telemetry.
+
+        The recorder's (predicted_s, measured_s) pairs become per-format
+        affine corrections; the fitted model replaces the session's
+        ``cost_model`` so subsequent partition planning charges the measured
+        per-launch cost. The hardware is the session cost model's, or
+        ``H100_SXM`` where it has none. Cached partitioned plans were scored
+        by the old model and are evicted (any ``part:*`` mode, every bucket)
+        — the next request re-plans against measured reality. Persisted as a
+        sibling of the tuning cache so a restarted session auto-loads it.
+        """
+        if self.telemetry is None:
+            raise ValueError("calibrate() requires a telemetry recorder")
+        from repro_torch.core.objectives import H100_SXM, CalibratedCostModel
+
+        hw = getattr(self.cost_model, "hw", None) or H100_SXM
+        model = CalibratedCostModel.fit_from_telemetry(self.telemetry, hw)
+        model.corrections = {
+            f: c for f, c in model.corrections.items() if c.samples >= min_samples
+        }
+        self.cost_model = model
+        dropped = 0
+        for entry in list(self.cache.entries()):
+            if entry.mode.startswith("part:"):
+                dropped += self.invalidate(entry.bucket, entry.objective, entry.mode)
+        if save and self.cache_path is not None:
+            model.save(_calibration_path(self.cache_path))
+        log.info(
+            "calibrated cost model: %d format(s), %d stale partitioned plan(s) "
+            "dropped",
+            len(model.corrections),
+            dropped,
+        )
+        return model
 
     # ----------------------------------------------------------- persistence
     def save(self, path: str | Path | None = None) -> Path:

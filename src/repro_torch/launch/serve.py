@@ -25,8 +25,25 @@ so a relaunched server starts warm and skips the predictor inferences.
 blocks (``--fused``: one launch per request); ``--format-plugins`` imports
 modules that register extra formats.
 
-The reference launcher's telemetry, SLO-tracking (``--slo-config``),
-anomaly and fleet flags belong to later slices of the port.
+Telemetry flags (SpMV mode): ``--telemetry`` times every served kernel and
+aggregates per-(bucket, format) measurement arms; ``--telemetry-log`` makes
+the records a restart-surviving JSONL append-log (the bandit warm-starts
+from it); ``--adaptive`` layers the UCB bandit + drift detector on top
+(implies ``--telemetry``), also per row block with ``--partition``;
+``--refit-every`` refits the format classifier from telemetry;
+``--calibrate-every`` refits the cost model's per-format corrections and
+saves them beside ``--spmv-cache``.
+
+Active-observability flags: ``--slo-config`` attaches an ``SloTracker``
+(burn-rate alerting + objective escalation; JSON overrides the per-class
+targets) in both modes — in SpMV mode requests get SLO classes via
+``--spmv-slo``; ``--anomaly`` runs the cost-model residual watchdog
+(recalibrate + targeted eviction on sustained anomaly); ``--fleet-dir`` +
+``--sync-every`` sync the bandit posterior with peer serve processes
+through a shared shard directory (``obs/sync.py``), with a final sync at
+shutdown; ``--metrics-port`` serves ``/metrics`` and ``/slo`` while the
+run lasts; ``--profile-dir`` records the serving run with
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -80,11 +97,6 @@ def _build_lm_engine(args, cfg, params, device):
 def serve_lm(args) -> list[Request]:
     from repro_torch.models.sparse_linear import SLO_PRIORITY
 
-    if args.slo_config:
-        raise NotImplementedError(
-            "--slo-config needs the SLO tracker (obs/slo.py), a later slice of the "
-            "port (see ROADMAP.md); the reference launcher serves it"
-        )
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced_config=True)
     if cfg.prefix_len:
@@ -94,11 +106,17 @@ def serve_lm(args) -> list[Request]:
     params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=device)
     if args.lm_sparse:
         engine, params = _build_lm_engine(args, cfg, params, device)
+    slo_tracker = None
+    if args.slo_config:
+        from repro_torch.obs.slo import SloConfig, SloTracker
+
+        slo_tracker = SloTracker(SloConfig.load(args.slo_config))
     server = BatchedServer(
         params, cfg,
         ServeConfig(batch_slots=args.slots, max_len=args.max_len,
                     max_new_tokens=args.max_new_tokens),
         engine=engine,
+        slo=slo_tracker,
     )
     rng = np.random.default_rng(args.seed)
     reqs = [
@@ -148,12 +166,91 @@ def serve_spmv(args) -> list[SpmvRequest]:
     )
     log.info("tuner ready in %.1fs (device %s)", time.time() - t0, device)
 
-    session = AutoSpmvSession(tuner, cache_path=args.spmv_cache)
+    # active-observability features imply their substrates: fleet sync needs
+    # the bandit posterior, the anomaly watchdog needs calibration pairs
+    want_adaptive = args.adaptive or args.fleet_dir is not None
+    telemetry = adaptive = feedback = None
+    if (
+        args.telemetry
+        or want_adaptive
+        or args.telemetry_log
+        or args.refit_every > 0
+        or args.calibrate_every > 0
+        or args.anomaly
+    ):
+        from repro_torch.telemetry import (
+            AdaptiveFormatSelector,
+            FeedbackConfig,
+            FeedbackLoop,
+            TelemetryRecorder,
+        )
+
+        telemetry = TelemetryRecorder(log_path=args.telemetry_log)
+        if telemetry.total_observations():
+            log.info(
+                "telemetry warm start: %s from %s",
+                telemetry.summary(),
+                args.telemetry_log,
+            )
+        if want_adaptive:
+            adaptive = AdaptiveFormatSelector()
+            seeded = adaptive.warm_start(telemetry)
+            if seeded:
+                log.info("bandit warm start: %d arms seeded from the log", seeded)
+        if args.refit_every > 0:
+            # base_dataset keeps the offline labels in every refit: a few
+            # fleet measurements sharpen the classifier, never replace its
+            # coverage of unmeasured feature regions
+            feedback = FeedbackLoop(
+                telemetry,
+                base_dataset=tuner.dataset,
+                config=FeedbackConfig(refit_every=args.refit_every),
+            )
+
+    session = AutoSpmvSession(
+        tuner, cache_path=args.spmv_cache, telemetry=telemetry, adaptive=adaptive
+    )
     if len(session.cache):
         log.info("warm start: %d cached plans from %s", len(session.cache), args.spmv_cache)
+
+    spmv_slo = args.spmv_slo or ("mixed" if args.slo_config else None)
+    slo_tracker = None
+    if spmv_slo:
+        from repro_torch.obs.slo import SLO_CLASSES, SloConfig, SloTracker
+
+        slo_cfg = SloConfig.load(args.slo_config) if args.slo_config else SloConfig()
+        slo_tracker = SloTracker(slo_cfg)
+        log.info(
+            "slo tracking on %d class(es), windows %d/%d",
+            len(slo_cfg.targets), slo_cfg.fast_window, slo_cfg.slow_window,
+        )
+    fleet = None
+    if args.fleet_dir is not None:
+        from repro_torch.obs.sync import FleetSync
+
+        fleet = FleetSync(
+            session,
+            args.fleet_dir,
+            instance=args.obs_instance,
+            sync_every=args.sync_every,
+        )
+        log.info(
+            "fleet sync [%s]: shard %s, every %d request(s)",
+            args.obs_instance, fleet.shard_path, args.sync_every,
+        )
     server = SpmvServer(
-        session, partition=args.partition, max_blocks=args.max_blocks, fused=args.fused
+        session,
+        feedback=feedback,
+        partition=args.partition,
+        max_blocks=args.max_blocks,
+        fused=args.fused,
+        calibrate_every=args.calibrate_every,
+        slo=slo_tracker,
+        anomaly=args.anomaly,
+        fleet=fleet,
     )
+    if args.metrics_port is not None:
+        server.start_metrics_server(args.metrics_port)
     if args.partition:
         log.info(
             "partitioned serving: composite plans up to %d nnz-balanced row "
@@ -169,8 +266,23 @@ def serve_spmv(args) -> list[SpmvRequest]:
     for i in range(args.requests):
         dense = generate_by_name(str(rng.choice(pool)), scale=args.spmv_scale)
         x = rng.normal(size=dense.shape[1]).astype(np.float32)
-        reqs.append(SpmvRequest(rid=i, dense=dense, x=x, objective=args.objective))
-    done = server.run(reqs)
+        slo = None
+        if spmv_slo is not None:
+            slo = SLO_CLASSES[i % len(SLO_CLASSES)] if spmv_slo == "mixed" else spmv_slo
+        reqs.append(
+            SpmvRequest(rid=i, dense=dense, x=x, objective=args.objective, slo=slo)
+        )
+    try:
+        if args.profile_dir:
+            from repro_torch.obs import profile_capture
+
+            with profile_capture(args.profile_dir):
+                done = server.run(reqs)
+        else:
+            done = server.run(reqs)
+    finally:
+        if args.metrics_port is not None:
+            server.stop_metrics_server()
 
     for r in done:
         ref = r.dense @ r.x
@@ -194,6 +306,14 @@ def serve_spmv(args) -> list[SpmvRequest]:
         session.cache.stats(),
     )
     log.info("server summary: %s", server.summary())
+    if telemetry is not None:
+        telemetry.flush()
+        if args.telemetry_log:
+            log.info("telemetry log flushed to %s", args.telemetry_log)
+    if fleet is not None:
+        # shutdown flush: export the final local posterior and absorb
+        # whatever the peers wrote since the last periodic sync
+        log.info("final fleet sync: %s", fleet.sync())
     if args.spmv_cache:
         session.save()
         log.info("tuning cache saved to %s", args.spmv_cache)
@@ -230,8 +350,6 @@ def main(argv=None):
                              "energy-saving", "mixed"],
                     help="LM mode: the SLO class stamped on every request "
                          "('mixed' cycles all four across the request stream)")
-    ap.add_argument("--slo-config", default=None,
-                    help="SLO tracker targets (not ported yet: raises)")
     ap.add_argument("--summary-export", default=None,
                     help="LM mode: write the server summary (SLO mix, engine "
                          "plans, energy cells) as JSON here")
@@ -257,7 +375,22 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="with --partition: run the composite plan as ONE "
                          "launch of the fused kernel instead of per-block "
-                         "kernels")
+                         "kernels; disables per-block bandit timing")
+    ap.add_argument("--calibrate-every", type=int, default=0,
+                    help="refit the CalibratedCostModel from telemetry every "
+                         "N served requests (0=off; needs --telemetry); the "
+                         "fit persists next to --spmv-cache")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="measure every served kernel and aggregate per-arm stats")
+    ap.add_argument("--telemetry-log", default=None,
+                    help="JSONL append-log path; replayed on restart "
+                         "(implies --telemetry)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="UCB format bandit + drift-triggered cache invalidation "
+                         "(implies --telemetry)")
+    ap.add_argument("--refit-every", type=int, default=0,
+                    help="refit the format classifier every N observations "
+                         "(0=off; implies --telemetry)")
     ap.add_argument("--objective", default="latency",
                     choices=["latency", "energy", "power", "efficiency"])
     ap.add_argument("--metrics-export", default=None,
@@ -268,6 +401,35 @@ def main(argv=None):
                          "after serving")
     ap.add_argument("--obs-instance", default="serve",
                     help="instance label stamped into exported shards")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="SpMV mode: serve Prometheus /metrics (+ /healthz, "
+                         "/obs, /slo) on 127.0.0.1 at this port from a daemon "
+                         "thread while serving (0 = ephemeral)")
+    ap.add_argument("--slo-config", default=None,
+                    help="JSON overriding the per-class SLO targets; attaches "
+                         "burn-rate alerting + objective escalation "
+                         "(obs/slo.py) in either mode")
+    ap.add_argument("--spmv-slo", default=None,
+                    choices=["latency-critical", "power-capped", "balanced",
+                             "energy-saving", "mixed"],
+                    help="SpMV mode: SLO class stamped on requests ('mixed' "
+                         "cycles all four); defaults to 'mixed' when "
+                         "--slo-config is given")
+    ap.add_argument("--anomaly", action="store_true",
+                    help="SpMV mode: cost-model residual watchdog — on "
+                         "sustained anomaly, drop the format's calibration "
+                         "window, recalibrate, and evict its cached plans "
+                         "(implies --telemetry)")
+    ap.add_argument("--fleet-dir", default=None,
+                    help="SpMV mode: shared directory of fleet shards; the "
+                         "bandit posterior syncs with peer serve processes "
+                         "through it (implies --adaptive)")
+    ap.add_argument("--sync-every", type=int, default=8,
+                    help="with --fleet-dir: sync after every N served "
+                         "requests (plus a final sync at shutdown)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="SpMV mode: record the serving run with "
+                         "torch.profiler into this directory (Chrome trace)")
     args = ap.parse_args(argv)
 
     if args.spmv:

@@ -4,7 +4,8 @@ Layer layout = optional ``first_blocks`` + ``pattern`` repeated
 ``n_groups`` times (params stacked on a leading group axis, walked by a
 Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds
 ``"attn"`` and ``"local"`` are ported; ``"moe"``, ``"rec"``, ``"mlstm"``
-and ``"slstm"`` raise ``NotImplementedError`` (ROADMAP queue A, item 6).
+and ``"slstm"`` raise ``NotImplementedError`` (ROADMAP queue A, item 5:
+MoE in 5(a), the recurrent blocks in 5(b)).
 
 Three entry points: ``forward`` (full sequence, no cache), ``prefill``
 (fills the serving cache over a full prompt) and ``decode_step`` (one
@@ -34,19 +35,21 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.param import ParamSpec, init_params, stack_specs, torch_dtype, tree_map
 
+# block kind -> (what it needs, its ROADMAP.md queue A item)
 _LATER = {
-    "moe": "the MoE layer (models/moe.py) and its engine path",
-    "rec": "the recurrent blocks (models/recurrent.py)",
-    "mlstm": "the recurrent blocks (models/recurrent.py)",
-    "slstm": "the recurrent blocks (models/recurrent.py)",
+    "moe": ("the MoE layer (models/moe.py) and its engine path", "5(a)"),
+    "rec": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
+    "mlstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
+    "slstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
 }
 
 
 def _not_ported(kind: str):
     if kind in _LATER:
+        needs, item = _LATER[kind]
         return NotImplementedError(
-            f"block kind {kind!r} needs {_LATER[kind]}, a later slice of the port "
-            "(ROADMAP.md queue A, item 6); the reference package serves it"
+            f"block kind {kind!r} needs {needs}, a later slice of the port "
+            f"(ROADMAP.md queue A, item {item}); the reference package serves it"
         )
     return ValueError(f"unknown block kind {kind!r}")
 

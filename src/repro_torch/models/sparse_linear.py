@@ -352,7 +352,7 @@ def prune_model_ffns(params, cfg, engine: SparseInferenceEngine, density: float)
         if "moe" in block:
             raise NotImplementedError(
                 "pruning MoE experts needs the MoE slice of the port (ROADMAP.md "
-                "queue A, item 6)"
+                "queue A, item 5(a))"
             )
         block = dict(block)
         if "mlp" in block:

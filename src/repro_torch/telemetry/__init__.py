@@ -2,18 +2,23 @@
 
 Auto-SpMV's premise is that the classifier is only as good as its dataset of
 measured outcomes (§5.4, §6.1) — yet a cached plan, once wrong, would be
-served forever. ``adaptive`` is the part of that loop that exists in the
-port so far: a UCB bandit layered over the classifier's prior, with a
-bounded exploration budget and a sustained-drift detector that evicts stale
-``TuningCache`` entries, and the bandit cell keys for row blocks
-(``block_arm_bucket``) and solver density phases (``phase_arm_bucket``).
-The iterative solvers' SpMV↔SpMSpV policy (``repro_torch.solvers.adaptive``)
-runs on it.
+served forever. This package turns every served request into a labelled
+measurement and every measurement into a better plan:
 
-Not in the port yet (ROADMAP.md, queue A item 4): the ``recorder``
-(per-request measurement records with restart-surviving persistence) and the
-``feedback`` loop (telemetry exported as tuning records, incremental refit).
-Their names are not exported here; importing them raises ``ImportError``.
+* ``recorder``  — per-request ``MeasurementRecord``s with EWMA/percentile
+  aggregation per (bucket, objective, format) arm and restart-surviving
+  JSONL persistence;
+* ``adaptive``  — a UCB bandit layered over the classifier's prior, with a
+  bounded exploration budget and a sustained-drift detector that evicts
+  stale ``TuningCache`` entries;
+* ``feedback``  — exports telemetry as §5.4 ``TuningRecord``s and drives
+  incremental refit of the format classifier through ``ml/model_zoo``.
+
+Wiring: ``AutoSpmvSession`` (record/consult hooks, cache invalidation,
+``calibrate``), ``SpmvServer`` (timed execution + observe), ``launch/serve.py``
+(``--telemetry`` / ``--telemetry-log`` / ``--adaptive`` / ``--refit-every``).
+The iterative solvers' SpMV↔SpMSpV policy (``repro_torch.solvers.adaptive``)
+runs on the same selector.
 """
 
 from repro_torch.telemetry.adaptive import (
@@ -24,12 +29,28 @@ from repro_torch.telemetry.adaptive import (
     block_arm_bucket,
     phase_arm_bucket,
 )
+from repro_torch.telemetry.feedback import (
+    FeedbackConfig,
+    FeedbackLoop,
+    telemetry_records,
+)
+from repro_torch.telemetry.recorder import (
+    ArmAggregate,
+    MeasurementRecord,
+    TelemetryRecorder,
+)
 
 __all__ = [
     "AdaptiveConfig",
     "AdaptiveFormatSelector",
+    "ArmAggregate",
     "ArmState",
     "CellState",
+    "FeedbackConfig",
+    "FeedbackLoop",
+    "MeasurementRecord",
+    "TelemetryRecorder",
     "block_arm_bucket",
     "phase_arm_bucket",
+    "telemetry_records",
 ]

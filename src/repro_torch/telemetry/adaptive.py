@@ -50,9 +50,8 @@ CellKey = tuple[str, str]  # (bucket, objective)
 def block_arm_bucket(bucket: str, index: int, n_blocks: int) -> str:
     """Bandit cell key for one row block of a partitioned plan.
 
-    Partitioned serving with a selector attached (``AutoSpmvSession``'s
-    ``serve_partitioned``/``observe_partitioned``; in the port those
-    branches wait for the recorder, ROADMAP A.4) scopes every bandit cell
+    Partitioned serving (repro_torch.partition + ``AutoSpmvSession``'s
+    ``serve_partitioned``/``observe_partitioned``) scopes every bandit cell
     to a block, so each (block, format) pair is its own arm: block 2 of a
     heterogeneous matrix can drift to SELL while block 0 keeps BELL, and a
     sustained-drift eviction re-plans the composite without touching the

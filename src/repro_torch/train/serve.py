@@ -16,22 +16,30 @@ across restarts), and prepared kernels are reused from the process memo. The
 tuning cost is thereby paid once per unique matrix per fleet, which is the
 paper's §5.3 amortization argument turned into a serving layer.
 
-With telemetry attached to the session (duck-typed recorder / adaptive
-selector) the server times every kernel execution and feeds it back via
-``session.observe``.
+With telemetry attached to the session (repro_torch/telemetry) the server
+times every kernel execution and feeds it back via ``session.observe``:
+requests become labelled measurements, the bandit explores alternate formats
+within budget, drifted plans are evicted, and an optional ``FeedbackLoop``
+incrementally refits the format classifier from the accumulated records —
+the predict→measure→relearn loop closed inside the serving path.
 
 With ``partition=True`` every request gets a per-matrix composite plan
 over nnz-balanced row blocks (``session.partitioned_optimize``), run block
-by block or, with ``fused=True``, as one launch of the fused kernel.
+by block or, with ``fused=True``, as one launch of the fused kernel. On the
+observed path each block is timed on its own (``PartitionedSpmv.timed_call``)
+and every (block, format) pair is its own bandit arm.
+
+Active observability (``repro_torch.obs``): ``slo=`` (an ``SloTracker``)
+feeds burn-rate windows per SLO class and escalates a firing class's
+objective, in both servers; ``anomaly=True`` attaches the cost-model
+residual watchdog; ``fleet=`` syncs the bandit posterior with peer
+instances; ``calibrate_every=`` refits the session's cost model from
+telemetry; ``start_metrics_server`` serves ``/metrics`` and ``/slo``.
 
 Kernels run on the session tuner's device; each request's ``y`` comes back
 to the host as a numpy array, which also synchronises the launch, so the
-measured execution time covers the kernel and the copy.
-
-Not in this slice: partitioned serving on the observed (telemetry/adaptive)
-path, SLO tracking (``SpmvServer(slo=)``, ``BatchedServer(slo=)``), the
-anomaly watchdog, fleet sync, periodic calibration and the metrics HTTP
-endpoint — asking for one raises ``NotImplementedError``.
+measured execution time covers the kernel and the copy (host wall time, as
+in the reference package).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.models.model import decode_step, init_cache, prefill
 from repro_torch.models.sparse_linear import SLO_PRIORITY, slo_objective
 from repro_torch.models.param import tree_map
 from repro_torch.obs.energy import EnergyAccountant
+from repro_torch.obs.http import ObsHTTPServer
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.obs.trace import get_tracer, span as _span
 from repro_torch.sparse.registry import default_format
@@ -89,22 +98,20 @@ class BatchedServer:
     burned the joules. Prefill stays dense: the weights themselves are
     pruned, so the prompt pass is numerically identical either way.
 
-    Everything runs on the device the params live on. ``slo=`` (an SLO
-    tracker) belongs to the observability slice and raises.
+    Everything runs on the device the params live on. With ``slo=`` (an
+    ``SloTracker``) each slot's share of a tick feeds its class's burn
+    windows, and a firing class escalates the tick's objective.
     """
 
     def __init__(
-        self, params: Any, cfg: ModelConfig, sc: ServeConfig, *, engine=None, slo=None,
+        self, params: Any, cfg: ModelConfig, sc: ServeConfig, *, engine=None,
+        slo=None,  # optional repro_torch.obs.slo.SloTracker
     ):
-        if slo is not None:
-            raise NotImplementedError(
-                "BatchedServer(slo=...) needs the SLO tracker (obs/slo.py), a later "
-                "slice of the port (see ROADMAP.md); the reference package serves it"
-            )
         self.params = params
         self.cfg = cfg
         self.sc = sc
         self.engine = engine
+        self.slo = slo
         self.device = params["embed"].device
         self.cache = init_cache(cfg, sc.batch_slots, sc.max_len, self.device)
         self.slot_req: list[Request | None] = [None] * sc.batch_slots
@@ -152,6 +159,10 @@ class BatchedServer:
         active = {r.slo for r in self.slot_req if r is not None}
         for slo in SLO_PRIORITY:
             if slo in active:
+                if self.slo is not None:
+                    # a firing class drags the shared tick to the violated
+                    # dimension's objective until the burn clears
+                    return self.slo.effective_objective(slo)
                 return slo_objective(slo)
         return self.sc.objective
 
@@ -177,7 +188,19 @@ class BatchedServer:
         toks_t = torch.as_tensor(toks, device=self.device)
         pos = torch.as_tensor(self.slot_pos[:, None], device=self.device)
         if self.engine is None:
+            t0 = time.perf_counter()
             logits, self.cache = self._decode(self.params, self.cache, toks_t, pos)
+            if self.slo is not None:
+                # dense decode has no per-objective engine to escalate, but
+                # the burn-rate windows still need the measured latency —
+                # a tracker that never sees samples can never alert
+                _block(logits)
+                dt = time.perf_counter() - t0
+                active = [r for r in self.slot_req if r is not None]
+                share = dt / max(len(active), 1)
+                for r in active:
+                    self.slo.observe(r.slo, latency_s=share)
+                self.slo.evaluate()
         else:
             objective = self._tick_objective()
             fn = self._decode_for(objective)
@@ -226,6 +249,12 @@ class BatchedServer:
                 modeled=modeled,
                 block="lm",
             )
+            if self.slo is not None:
+                self.slo.observe(
+                    r.slo, latency_s=share, energy_j=modeled.get("energy")
+                )
+        if self.slo is not None:
+            self.slo.evaluate()
 
     # ------------------------------------------------------------------- run
     def run(self, requests: list[Request]) -> list[Request]:
@@ -250,6 +279,8 @@ class BatchedServer:
             "ticks": self.ticks,
             "slo_classes": dict(sorted(self._slo_counts.items())),
         }
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
         if self.engine is not None:
             out["engine"] = self.engine.summary()
             out["session"] = self.engine.session.stats.as_dict()
@@ -278,7 +309,8 @@ class SpmvRequest:
     dense: np.ndarray
     x: np.ndarray
     objective: str = "latency"
-    slo: str | None = None  # SLO class; resolving one needs the SLO slice
+    slo: str | None = None  # SLO class; when set, the served objective is
+    # resolved through the tracker (native, or escalated while firing)
     # outputs
     y: np.ndarray | None = None
     schedule: Any = None  # KernelSchedule the session picked
@@ -310,27 +342,15 @@ class SpmvServer:
         session: AutoSpmvSession,
         *,
         adaptive: bool | None = None,
-        feedback=None,  # optional feedback loop (duck-typed: maybe_refit/refits)
+        feedback=None,  # optional repro_torch.telemetry.FeedbackLoop
         partition: bool = False,
         max_blocks: int = 8,
         fused: bool = False,
         calibrate_every: int = 0,
-        slo=None,
-        anomaly: bool = False,
-        fleet=None,
+        slo=None,  # optional repro_torch.obs.slo.SloTracker
+        anomaly: bool = False,  # attach a CostModelWatchdog (needs telemetry)
+        fleet=None,  # optional repro_torch.obs.sync.FleetSync
     ):
-        later = {
-            "calibrate_every": calibrate_every,
-            "slo": slo is not None,
-            "anomaly": anomaly,
-            "fleet": fleet is not None,
-        }
-        asked = [name for name, on in later.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"SpmvServer({', '.join(asked)}=...) belongs to a later slice of "
-                "the port (see ROADMAP.md); the reference package serves it"
-            )
         self.session = session
         # default: take the observed path whenever the session can consume
         # measurements (telemetry recorder and/or bandit attached)
@@ -339,30 +359,43 @@ class SpmvServer:
             if adaptive is not None
             else (session.telemetry is not None or session.adaptive is not None)
         )
-        if partition and self.adaptive:
-            raise NotImplementedError(
-                "partitioned serving on the observed (telemetry/adaptive) path "
-                "needs per-block arms from the telemetry slice of the port"
-            )
         self.feedback = feedback
         self.partition = partition
         self.max_blocks = max_blocks
-        # single-launch composite executor on the partitioned path
+        # single-launch composite executor on the non-adaptive partitioned
+        # path (the adaptive path needs per-block timing, which one launch
+        # cannot provide)
         self.fused = fused
+        # recalibrate the session's cost model every N served requests
+        # (0 = never); requires telemetry on the session
+        self.calibrate_every = int(calibrate_every)
+        self.calibrations = 0
+        self._served_since_calibration = 0
         self.batches_served = 0
         self.requests_served = 0
         # observability: request counters + latency histograms live in the
         # process metrics registry; modeled-energy accounting per cell
         self.metrics = get_metrics()
         self.energy = EnergyAccountant(self.metrics)
+        self._obs_http: ObsHTTPServer | None = None
+        # active observability: burn-rate alerting + escalation, cost-model
+        # residual watchdog, live fleet posterior sync — all evaluated once
+        # per served batch
+        self.slo = slo
+        self.fleet = fleet
+        self.watchdog = None
+        if anomaly:
+            from repro_torch.obs.anomaly import CostModelWatchdog
+
+            self.watchdog = CostModelWatchdog(session)
+        self.anomaly_fires = 0
 
     def _resolve_objective(self, req: SpmvRequest) -> str:
-        if req.slo is not None:
-            raise NotImplementedError(
-                "SLO-classed requests need the SLO slice of the port; "
-                "set SpmvRequest.objective instead"
-            )
-        return req.objective
+        if req.slo is None:
+            return req.objective
+        if self.slo is not None:
+            return self.slo.effective_objective(req.slo)
+        return slo_objective(req.slo)
 
     def _account(
         self,
@@ -372,8 +405,10 @@ class SpmvServer:
         modeled: dict | None,
         *,
         block: str = "",
+        slo: str | None = None,
     ) -> None:
-        """Fold one served execution into counters/histograms/energy cells."""
+        """Fold one served execution into counters/histograms/energy cells
+        (and, when the request carries an SLO class, its burn windows)."""
         self.metrics.counter("spmv_requests_total", fmt=fmt, objective=objective).inc()
         self.metrics.histogram(
             "spmv_request_latency_seconds", objective=objective
@@ -385,6 +420,12 @@ class SpmvServer:
             modeled=modeled,
             block=block,
         )
+        if self.slo is not None and slo is not None:
+            self.slo.observe(
+                slo,
+                latency_s=measured_s,
+                energy_j=(modeled or {}).get("energy"),
+            )
 
     def _run_observed(self, objective: str, group: list[SpmvRequest]) -> None:
         """Per-request serve + measure + observe (telemetry/adaptive mode).
@@ -406,7 +447,7 @@ class SpmvServer:
                 req.exploratory = plan.exploratory
                 req.latency_s = dt
                 self.session.observe(plan, dt)
-                self._account(objective, plan.fmt, dt, plan.predicted)
+                self._account(objective, plan.fmt, dt, plan.predicted, slo=req.slo)
         self._maybe_refit()
 
     def _maybe_refit(self) -> None:
@@ -416,30 +457,57 @@ class SpmvServer:
                 log.info("telemetry refit after batch: %s", refit)
 
     def _run_partitioned(self, objective: str, group: list[SpmvRequest]) -> None:
-        """Per-request partitioned serve: the composite kernel runs as one
-        call (no per-block synchronise is paid for measurements nothing
-        would consume); its time covers the kernel(s) and the copy of ``y``."""
+        """Per-request partitioned serve. On the observed path (telemetry
+        and/or bandit consuming measurements) blocks are timed individually
+        so each (block, format) arm learns its own wall time; otherwise the
+        composite kernel runs as one call — no per-block synchronise is paid
+        for measurements nothing would consume — and its time covers the
+        kernel(s) and the copy of ``y``."""
         for req in group:
             with _span(
                 "server.request", rid=req.rid, objective=objective, mode="partitioned"
             ):
-                res = self.session.partitioned_optimize(
-                    req.dense, objective, max_blocks=self.max_blocks, fused=self.fused
-                )
-                t0 = time.perf_counter()
-                y = _to_host(res.kernel(req.x))
-                dt = time.perf_counter() - t0
+                if self.adaptive:
+                    res = self.session.serve_partitioned(
+                        req.dense, objective, max_blocks=self.max_blocks
+                    )
+                    y, block_times = res.kernel.timed_call(req.x)
+                    dt = sum(block_times)
+                    self.session.observe_partitioned(res, block_times)
+                    # per-block energy attribution: each row block's modeled
+                    # estimate against its own measured slice
+                    for bp, fmt, bt in zip(res.plan.blocks, res.formats, block_times):
+                        self.energy.observe(
+                            fmt=fmt,
+                            objective=objective,
+                            measured_s=bt,
+                            modeled=bp.modeled.as_dict(),
+                            block=str(bp.block.index),
+                        )
+                else:
+                    res = self.session.partitioned_optimize(
+                        req.dense, objective, max_blocks=self.max_blocks,
+                        fused=self.fused,
+                    )
+                    t0 = time.perf_counter()
+                    y = _to_host(res.kernel(req.x))
+                    dt = time.perf_counter() - t0
                 req.y = y
                 req.schedule = res.plan.blocks[0].schedule
                 req.fmt = "+".join(res.formats)
                 req.cache_hit = res.cache_hit
+                req.exploratory = any(res.exploratory)
                 req.latency_s = dt
-                self._account(objective, req.fmt, dt, res.plan.modeled.as_dict())
+                self._account(
+                    objective, req.fmt, dt, res.plan.modeled.as_dict(), slo=req.slo
+                )
         self._maybe_refit()
 
     def run(self, requests: list[SpmvRequest]) -> list[SpmvRequest]:
         by_objective: dict[str, list[SpmvRequest]] = {}
         for r in requests:
+            # SLO-classed requests resolve through the tracker: the class's
+            # native objective, or the violated dimension's while firing
             r.served_objective = self._resolve_objective(r)
             by_objective.setdefault(r.served_objective, []).append(r)
         for objective, group in by_objective.items():
@@ -470,7 +538,10 @@ class SpmvServer:
                     key = self.session.plan_key(res.features, objective)
                     req.cache_hit = key in seen_keys
                     seen_keys.add(key)
-                    self._account(objective, default_format(), exec_s, res.predicted)
+                    self._account(
+                        objective, default_format(), exec_s, res.predicted,
+                        slo=req.slo,
+                    )
             # latency covers this group's tuning + execution only, not other
             # objective groups tuned later in the same batch
             dt = time.perf_counter() - t_group
@@ -478,6 +549,26 @@ class SpmvServer:
                 req.latency_s = dt
         self.batches_served += 1
         self.requests_served += len(requests)
+        self._served_since_calibration += len(requests)
+        if (
+            self.calibrate_every > 0
+            and self.session.telemetry is not None
+            and self._served_since_calibration >= self.calibrate_every
+        ):
+            self.session.calibrate()
+            self.calibrations += 1
+            self._served_since_calibration = 0
+        # active observability, once per batch: advance the alert state
+        # machines, let the residual watchdog judge fresh calibration pairs,
+        # and sync the fleet posterior when the request budget says so
+        if self.slo is not None:
+            self.slo.evaluate()
+        if self.watchdog is not None:
+            fired = self.watchdog.poll()
+            if fired:
+                self.anomaly_fires += len(fired)
+        if self.fleet is not None:
+            self.fleet.maybe_sync(len(requests))
         log.info(
             "spmv batch: %d requests, %d unique kernels compiled so far, %s",
             len(requests),
@@ -500,6 +591,14 @@ class SpmvServer:
             out["adaptive"] = self.session.adaptive.summary()
         if self.feedback is not None:
             out["refits"] = self.feedback.refits
+        if self.calibrate_every > 0:
+            out["calibrations"] = self.calibrations
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
+        if self.watchdog is not None:
+            out["anomaly"] = self.watchdog.summary()
+        if self.fleet is not None:
+            out["fleet"] = self.fleet.summary()
         latency: dict[str, dict] = {}
         for hist in self.metrics.instruments("histogram", "spmv_request_latency_seconds"):
             if not hist.count:
@@ -517,9 +616,9 @@ class SpmvServer:
     def dump_obs(
         self, out_dir, *, instance: str = "server"
     ) -> dict[str, str]:
-        """Export this instance's observability shards: a metrics JSONL
-        shard, a trace JSONL shard, and the summary (with energy/latency
-        aggregates) as JSON. Returns path strings."""
+        """Export this instance's observability shards (fleet aggregation
+        input): a metrics JSONL shard, a trace JSONL shard, and the summary
+        (with energy/latency aggregates) as JSON. Returns path strings."""
         import json
         from pathlib import Path
 
@@ -542,8 +641,24 @@ class SpmvServer:
             "summary": str(summary_path),
         }
 
-    def start_metrics_server(self, port: int = 0, *, host: str = "127.0.0.1"):
-        raise NotImplementedError(
-            "the metrics HTTP endpoint belongs to the observability slice of the "
-            "port; use dump_obs() or --metrics-export"
-        )
+    def start_metrics_server(
+        self, port: int = 0, *, host: str = "127.0.0.1"
+    ) -> ObsHTTPServer:
+        """Serve ``/metrics`` + ``/healthz`` + ``/obs`` (+ ``/slo`` when a
+        tracker is attached) from a daemon thread."""
+        if self._obs_http is None:
+            self._obs_http = ObsHTTPServer(
+                self.metrics,
+                extra=self.summary,
+                slo=self.slo.snapshot if self.slo is not None else None,
+                host=host,
+                port=port,
+            )
+            self._obs_http.start()
+            log.info("metrics endpoint at %s/metrics", self._obs_http.url)
+        return self._obs_http
+
+    def stop_metrics_server(self) -> None:
+        if self._obs_http is not None:
+            self._obs_http.stop()
+            self._obs_http = None

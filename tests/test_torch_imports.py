@@ -83,6 +83,8 @@ EXPORTS = {
     "train": ({"TrainConfig", "Trainer", "make_loss_fn", "make_train_step"},
               {"SpmvRequest", "SpmvServer"}),
     "sparse": (set(), set()),
+    "telemetry": (set(), set()),
+    "obs": (set(), set()),
 }
 
 

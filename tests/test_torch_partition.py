@@ -343,10 +343,29 @@ def test_serve_and_observe_partitioned_without_and_with_telemetry():
     assert session.stats.observations == 1
     with pytest.raises(ValueError):
         session.observe_partitioned(res, [1e-3] * (res.n_blocks + 1))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        AutoSpmvSession(ours_t, adaptive=object()).serve_partitioned(dense)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        AutoSpmvSession(ours_t, telemetry=object()).observe_partitioned(res, [1e-3] * res.n_blocks)
+    # with a selector and a recorder: per-(block, format) arms, as the reference
+    from repro.telemetry import AdaptiveFormatSelector as RefSelector
+    from repro.telemetry import TelemetryRecorder as RefRecorder
+    from repro_torch.telemetry import AdaptiveFormatSelector, TelemetryRecorder
+
+    _, ref_t = _tuners()
+    ours = AutoSpmvSession(ours_t, cost_model=_cost_model(), adaptive=AdaptiveFormatSelector(),
+                           telemetry=TelemetryRecorder())
+    ref = RefSession(ref_t, adaptive=RefSelector(), telemetry=RefRecorder())
+    big = hetero_matrix(512)  # plans several blocks
+    x = _x(big.shape[1])
+    for step in range(6):
+        a, b = ours.serve_partitioned(big), ref.serve_partitioned(big)
+        assert (a.served_formats, a.exploratory) == (b.served_formats, b.exploratory)
+        assert len(a.served_formats) == a.n_blocks > 1
+        times = [1e-4 * (1 + (step + i) % 3) for i in range(a.n_blocks)]
+        ours.observe_partitioned(a, times)
+        ref.observe_partitioned(b, times)
+        assert_scaled_close(a.kernel(x).numpy(), np.asarray(b.kernel(x)), 1e-4)
+    assert ours.telemetry.summary() == ref.telemetry.summary()
+    assert ours.telemetry.arms().keys() == ref.telemetry.arms().keys()
+    assert ours.adaptive.summary() == ref.adaptive.summary()
+    assert ours.stats.explorations == ref.stats.explorations > 0
 
 
 def test_sharded_executor_belongs_to_a_later_slice():

@@ -9,9 +9,17 @@ flags, session counts, chosen formats and ``convert`` verdicts are exact;
 scaling by max |ref|, the rule of ``tests/test_kernels.py``."""
 
 import json
+import math
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
+
+import repro.partition.executor as ref_executor
+import repro.train.serve as ref_serve_module
+import repro_torch.partition.executor as executor
+import repro_torch.train.serve as serve_module
 
 from repro.core import autotuner as ref_autotuner
 from repro.core.cache import TuningCache as RefCache
@@ -23,22 +31,39 @@ from repro.core.predictor import AutoSpmvPredictor as RefPredictor
 from repro.core.predictor import PredictorConfig as RefPredictorConfig
 from repro.core.session import AutoSpmvSession as RefSession
 from repro.kernels import ops as ref_ops
+from repro.obs import slo as ref_slo
+from repro.obs import sync as ref_sync
+from repro.obs.metrics import MetricsRegistry as RefMetricsRegistry
+from repro.obs.metrics import reset_metrics as ref_reset_metrics
 from repro.sparse.generate import MATRIX_NAMES, generate_by_name, random_matrix
 from repro.train.serve import SpmvRequest as RefRequest
+from repro.telemetry import AdaptiveFormatSelector as RefSelector
+from repro.telemetry import TelemetryRecorder as RefRecorder
 from repro.train.serve import SpmvServer as RefServer
 from repro_torch.core.autotuner import AutoSpMV
 from repro_torch.core.cache import TuningCache
 from repro_torch.core.dataset import TuningDataset
 from repro_torch.core.features import extract_features
+from repro_torch.core.objectives import CostModel
 from repro_torch.core.overhead import OverheadPredictor, OverheadSample
 from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig
 from repro_torch.core.session import AutoSpmvSession, ServedPlan, build_tuner
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
+from repro_torch.obs import slo
+from repro_torch.obs import sync
+from repro_torch.obs.metrics import MetricsRegistry, reset_metrics
 from repro_torch.obs.trace import get_tracer, load_spans
+from repro_torch.telemetry import AdaptiveFormatSelector, TelemetryRecorder
 from repro_torch.train.serve import SpmvRequest, SpmvServer
 
-from torch_port_helpers import FORMATS, assert_scaled_close, tol_for
+from torch_port_helpers import (
+    FORMATS,
+    assert_scaled_close,
+    reference_profile,
+    same_clocks,
+    tol_for,
+)
 
 SCALE = 0.0015
 NAMES = MATRIX_NAMES[:6]
@@ -249,29 +274,157 @@ def test_invalidate_and_evict_format(tuners, clean):
     assert sess.stats.invalidations == 1
     sess.compile_time_optimize(dense, "latency")
     assert sess.invalidate(key[0]) == 1 and sess.invalidate(key[0]) == 0
-    for later in ("calibrate",):
-        assert not hasattr(sess, later)  # later slices; no silent stand-ins
+    for s in (sess, RefSession(tuners[1])):  # calibrating needs measurements
+        with pytest.raises(ValueError, match="telemetry recorder"):
+            s.calibrate()
+
+
+# each option rests on what the launcher gives it: a recorder, a selector
+def _needs(kw):
+    telemetry = bool(kw.get("anomaly") or kw.get("calibrate_every") or kw.get("adaptive"))
+    return telemetry, bool(kw.get("adaptive") or kw.get("fleet"))
+
+
+# latency targets the same clock's times cross: classes fire, then escalate
+SLO_CFG = dict(fast_window=4, slow_window=8, min_samples=2)
+SLO_P99_S = 4e-4
+
+
+def _server_pair(tuners, kw, tmp_path):
+    """(port, reference) ``SpmvServer``s with one option of the observability
+    slice, each over a fresh session holding what the option rests on. The
+    port plans partitions with the reference's cost-model constants."""
+    pairs = []
+    for pkg, tuner in zip(("port", "ref"), tuners):
+        port = pkg == "port"
+        telemetry, adaptive = _needs(kw)
+        Rec, Sel = (TelemetryRecorder, AdaptiveFormatSelector) if port else (RefRecorder, RefSelector)
+        sess_kw = {"cost_model": CostModel(reference_profile())} if port else {}
+        sess = (AutoSpmvSession if port else RefSession)(
+            tuner, telemetry=Rec() if telemetry else None,
+            adaptive=Sel() if adaptive else None, **sess_kw)
+        server_kw = {k: v for k, v in kw.items() if k not in ("slo", "fleet")}
+        slo_mod, sync_mod = (slo, sync) if port else (ref_slo, ref_sync)
+        if kw.get("slo"):  # a registry of its own: the process one is shared
+            registry = (MetricsRegistry if port else RefMetricsRegistry)()
+            server_kw["slo"] = slo_mod.SloTracker(slo_mod.SloConfig(
+                **SLO_CFG, targets={c: slo_mod.SloTarget(p99_latency_s=SLO_P99_S)
+                                    for c in slo_mod.SLO_CLASSES}), registry=registry)
+        if kw.get("fleet"):
+            server_kw["fleet"] = sync_mod.FleetSync(sess, tmp_path / pkg, instance=pkg,
+                                                    sync_every=4)
+        pairs.append(((SpmvServer if port else RefServer)(sess, **server_kw),
+                      SpmvRequest if port else RefRequest))
+    return pairs
+
+
+def _close_tree(a, b, rel=1e-9):
+    """Nested dicts/lists equal, floats to ``rel``."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _close_tree(a[k], b[k], rel)
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _close_tree(x, y, rel)
+    elif isinstance(a, float) and not (math.isnan(a) and math.isnan(b)):
+        assert a == pytest.approx(b, rel=rel, abs=1e-300)
+    else:
+        assert a == b or (isinstance(a, float) and math.isnan(a) and math.isnan(b))
+
+
+def _partition_tol(server, dense) -> float:
+    res = server.session.partitioned_optimize(dense, "latency", max_blocks=server.max_blocks)
+    return max(tol_for(b.schedule.accum_dtype) for b in res.plan.blocks)
 
 
 @pytest.mark.parametrize("kw", [dict(partition=True, adaptive=True),
                                 dict(partition=True, fused=True, adaptive=True), dict(anomaly=True),
-                                dict(slo=object()), dict(fleet=object()),
+                                dict(slo=True), dict(fleet=True),
                                 dict(calibrate_every=4)])
-def test_later_slices_raise_not_implemented(tuners, kw):
-    ours, _ = tuners
-    with pytest.raises(NotImplementedError):
-        SpmvServer(AutoSpmvSession(ours), **kw)
+def test_later_slices_raise_not_implemented(tuners, clean, kw, monkeypatch, tmp_path):
+    """The server options of the observability slice, each served through
+    both packages on the same clock and held against the reference: served
+    formats and objectives, bandit and telemetry arms, watchdog, SLO,
+    fleet and calibration state, and every ``y``."""
+    reset_metrics()
+    ref_reset_metrics()
+    same_clocks(monkeypatch, serve_module, ref_serve_module, executor, ref_executor)
+    (server, Req), (ref_server, RefReq) = _server_pair(tuners, kw, tmp_path)
+    batches = []
+    for _ in range(2):
+        reqs, ref_reqs = _traffic(Req), _traffic(RefReq)
+        if kw.get("slo"):
+            for i, (r, rr) in enumerate(zip(reqs, ref_reqs)):
+                r.slo = rr.slo = slo.SLO_CLASSES[i % len(slo.SLO_CLASSES)]
+        batches.append((server.run(reqs), ref_server.run(ref_reqs)))
+    for done, ref_done in batches:
+        assert [(r.fmt, r.exploratory, r.cache_hit, r.served_objective) for r in done] == [
+            (r.fmt, r.exploratory, r.cache_hit, r.served_objective) for r in ref_done]
+    sess, ref_sess = server.session, ref_server.session
+    assert _counts(sess) == _counts(ref_sess)
+    assert sess.stats.explorations == ref_sess.stats.explorations
+    summary, ref_summary = server.summary(), ref_server.summary()
+    for key in ("telemetry", "adaptive", "calibrations", "slo", "anomaly"):
+        assert (key in summary) == (key in ref_summary), key
+        if key in summary:
+            _close_tree(summary[key], ref_summary[key], rel=1e-6)
+    if kw.get("adaptive"):  # per-(block, format) arms in the partitioned cases
+        assert sess.telemetry.arms().keys() == ref_sess.telemetry.arms().keys()
+        assert all("#blk" in k[0] for k in sess.telemetry.arms())
+        assert sess.adaptive.cells().keys() == ref_sess.adaptive.cells().keys()
+    if kw.get("slo"):
+        fired = [r.served_objective for r, _ in zip(*batches[1])
+                 if r.served_objective != r.objective]
+        assert fired  # a firing class escalated its requests
+    if kw.get("anomaly"):
+        assert server.anomaly_fires == ref_server.anomaly_fires
+    if kw.get("calibrate_every"):
+        assert server.calibrations == ref_server.calibrations == 2  # once per batch
+        cal, ref_cal = sess.cost_model.corrections, ref_sess.cost_model.corrections
+        assert cal.keys() == ref_cal.keys() and cal
+        for f in cal:
+            _close_tree(cal[f].as_dict(), ref_cal[f].as_dict(), rel=1e-9)
+        assert sess.cost_model.hw.name == ref_sess.cost_model.hw.name == "tpu_v5e"
+    if kw.get("fleet"):
+        a, b = summary["fleet"], ref_summary["fleet"]
+        assert {k: v for k, v in a.items() if k not in ("fleet_dir", "instance")} == {
+            k: v for k, v in b.items() if k not in ("fleet_dir", "instance")}
+        assert a["syncs"] == 2  # once per batch of 8 at sync_every=4
+    for done, ref_done in batches:  # after the counts: the tolerance re-plans
+        for r, rr in zip(done, ref_done):
+            tol = (_partition_tol(server, r.dense) if kw.get("partition")
+                   else tol_for(r.schedule.accum_dtype))
+            assert_scaled_close(r.y, r.dense.astype(np.float64) @ r.x, tol)
+            assert_scaled_close(r.y, rr.y, tol)
 
 
-def test_slo_request_and_metrics_endpoint_raise(tuners):
-    ours, _ = tuners
-    server = SpmvServer(AutoSpmvSession(ours))
-    req = _traffic(SpmvRequest)[0]
-    req.slo = "balanced"
-    with pytest.raises(NotImplementedError):
-        server.run([req])
-    with pytest.raises(NotImplementedError):
-        server.start_metrics_server()
+def test_slo_request_and_metrics_endpoint_raise(tuners, clean):
+    """An SLO-classed request without a tracker runs under its class's
+    native objective in both packages; ``start_metrics_server`` serves
+    ``/metrics`` and answers ``/slo`` with 404 when no tracker is attached,
+    as the reference's endpoint does."""
+    ours, ref = tuners
+    server, ref_server = SpmvServer(AutoSpmvSession(ours)), RefServer(RefSession(ref))
+    req, ref_req = _traffic(SpmvRequest)[0], _traffic(RefRequest)[0]
+    req.slo = ref_req.slo = "balanced"
+    assert server.run([req])[0].served_objective == ref_server.run([ref_req])[0].served_objective \
+        == "efficiency"
+    bodies = []
+    for srv in (server, ref_server):
+        http = srv.start_metrics_server(0)
+        try:
+            assert srv.start_metrics_server(0) is http  # one endpoint per server
+            with urllib.request.urlopen(f"{http.url}/metrics", timeout=10) as resp:
+                bodies.append(resp.read().decode())
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(f"{http.url}/slo", timeout=10)
+            assert err.value.code == 404
+        finally:
+            srv.stop_metrics_server()
+    for body in bodies:
+        assert 'spmv_request_latency_seconds' in body and 'objective="efficiency"' in body
 
 
 def test_dump_obs_writes_shards(tuners, clean, tmp_path):

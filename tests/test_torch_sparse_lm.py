@@ -9,6 +9,7 @@ across with ``params_from_numpy``. Tolerances: pruning, registrations and
 counters exact; float32 products 1e-5 after scaling by max |ref|; sparse vs
 dense decode 5e-4 absolute, as the reference test holds it."""
 
+import dataclasses
 import json
 
 import jax
@@ -41,9 +42,10 @@ from repro_torch.models import sparse_linear as sl
 from repro_torch.models.param import tree_leaves, tree_map
 from repro_torch.optim import magnitude_prune
 from repro_torch.sparse import generate
+from repro_torch.train import serve as serve_module
 from repro_torch.train.serve import BatchedServer, Request, ServeConfig
 
-from torch_port_helpers import assert_scaled_close
+from torch_port_helpers import assert_scaled_close, same_clocks
 
 COUNTS = ("requests", "feature_extractions", "plans_computed", "kernel_compiles",
           "cache_hits", "cache_misses")
@@ -388,8 +390,32 @@ def test_batched_server_dense_and_refusals():
     srv = BatchedServer(pruned, cfg, ServeConfig(**sc), engine=engine)
     with pytest.raises(ValueError, match="unknown SLO class"):
         srv.run([Request(rid=0, prompt=[1, 2], max_new_tokens=1, slo="asap")])
-    with pytest.raises(NotImplementedError, match="SLO tracker"):
-        BatchedServer(params, cfg, ServeConfig(**sc), slo=object())
+    # with an SLO tracker: each slot's share of a dense tick feeds its
+    # class's burn windows, on the same clock in both packages
+    from repro.obs import slo as ref_slo
+    from repro.obs.metrics import MetricsRegistry as RefMetricsRegistry
+    from repro_torch.obs import slo
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    clocks = pytest.MonkeyPatch()
+    try:
+        same_clocks(clocks, serve_module, ref_serve)
+        trackers = []
+        for mod, Server, Req, Conf, p, c in (
+                (slo, BatchedServer, Request, ServeConfig, params, cfg),
+                (ref_slo, ref_serve.BatchedServer, ref_serve.Request, ref_serve.ServeConfig,
+                 ref, ref_cfg)):
+            registry = (MetricsRegistry if mod is slo else RefMetricsRegistry)()
+            tracker = mod.SloTracker(mod.SloConfig(fast_window=4, slow_window=8, min_samples=2),
+                                     registry=registry)
+            Server(p, c, Conf(**sc), slo=tracker).run(
+                [Req(rid=i, prompt=[1 + i, 2, 3], max_new_tokens=3, slo=s)
+                 for i, s in enumerate(("balanced", "energy-saving", "balanced"))])
+            trackers.append(tracker.snapshot())
+    finally:
+        clocks.undo()
+    assert trackers[0] == trackers[1]
+    assert trackers[0]["classes"]["balanced"]["samples"] > 0
 
 
 # -------------------------------------------------------------------- CLI
@@ -413,8 +439,19 @@ def test_cli_lm_mode_on_cpu(tmp_path):
     dense = launch_serve.main(["--arch", "qwen3-0.6b", "--device", "cpu", "--requests", "2",
                                "--max-new-tokens", "2", "--max-len", "32"])
     assert [len(r.generated) for r in dense] == [2, 2]
-    with pytest.raises(NotImplementedError, match="slo-config"):
-        launch_serve.main(argv + ["--slo-config", str(tmp_path / "slo.json")])
+    # --slo-config: the tracker the reference would load from the same file
+    from repro.obs.slo import SloConfig as RefSloConfig
+    from repro_torch.obs.slo import SloConfig
+
+    (tmp_path / "slo.json").write_text(json.dumps(
+        {"fast_window": 4, "targets": {"balanced": {"p99_latency_s": 1e-6}}}))
+    assert dataclasses.asdict(SloConfig.load(tmp_path / "slo.json")) == dataclasses.asdict(
+        RefSloConfig.load(tmp_path / "slo.json"))
+    launch_serve.main(argv + ["--slo-config", str(tmp_path / "slo.json")])
+    slo_summary = json.loads(out.read_text())["slo"]
+    assert slo_summary["config"]["fast_window"] == 4
+    assert slo_summary["classes"]["balanced"]["targets"]["p99_latency_s"] == 1e-6
+    assert sum(c["samples"] for c in slo_summary["classes"].values()) > 0
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--requests", "1"])  # the card
     with pytest.raises(NotImplementedError):  # MoE blocks wait for their slice

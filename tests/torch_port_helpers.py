@@ -177,3 +177,28 @@ def assert_scaled_close(y, ref, tol):
 
 def schedule_dict(s) -> dict:
     return dataclasses.asdict(s)
+
+
+def same_clocks(monkeypatch, *modules):
+    """Give each module its own host clock with one shared script: the k-th
+    ``time.perf_counter()`` read in any of them returns the same value. The
+    bandit, drift, the watchdog and SLO burn learn from wall time, which
+    differs between the packages; with the same clock their decisions must
+    agree exactly. A module keeps the rest of ``time``."""
+    import time
+    import types
+
+    for mod in modules:
+        ticks = iter(range(10**9))
+        # steps of 1..5 units: measured times vary from call to call
+        clock = types.SimpleNamespace(
+            **{k: getattr(time, k) for k in dir(time) if not k.startswith("_")})
+        state = {"t": 0.0}
+
+        def perf_counter(ticks=ticks, state=state):
+            k = next(ticks)
+            state["t"] += (1 + (k * 7) % 5) * 1e-4
+            return state["t"]
+
+        clock.perf_counter = perf_counter
+        monkeypatch.setattr(mod, "time", clock)
