@@ -186,17 +186,56 @@ no network. Phases, each printing one JSON object on a line of its own:
                 warm-starts from the log), sharing (a)'s fleet directory,
                 then LM mode with ``--slo-config``; a last fleet sync of (a)
                 absorbs the CLI instance's shard.
+12. ``zoo``     every family of the predictor zoo on the card. The port's
+                dataset (``collect_dataset``: the suite's first 8 matrices
+                and 40 random ones, labelled by the H100_SXM cost model);
+                per family ``core.hpo.tune_model`` (TPE, 3 trials, 3-fold)
+                and a held-out score on its task (classifiers: features ->
+                the latency-best format, accuracy on 12 matrices;
+                regressors: (features, config) -> log latency, fit on 200
+                records and R^2 on 1,000 others), tune and fit seconds on the
+                host clock; then an ``AutoSpmvPredictor`` per pair
+                (classifier, regressor), Table 4 defaults, the MLPs trained
+                on the card, served through an ``AutoSpmvSession`` in
+                compile-time mode and in run-time mode (four objectives)
+                over the pool: every ``y`` against the float64 host product,
+                launches per format equal to the kernels served, and the
+                picks' agreement with the ``decision_tree`` predictor's.
+13. ``moe``     ``deepseek-moe-16b`` at its published width (d 2,048, 16
+                heads, vocabulary 102,400, 64 routed experts of 1,408 with
+                top-6 and 2 shared, a dense FFN of 10,944 in layer 0; bf16
+                params, float32 router), the depth cut to 2 layers (layer 0
+                attention + dense FFN, layer 1 MoE), random weights from a
+                seeded generator on the card, the serve CLI's tuner, every
+                FFN matrix and expert slice pruned to 5 % (3 + 195 matrices)
+                and planned. The engine's decode step (every expert slice a
+                planned B1 SpMV weighted by the gate) against the dense
+                dispatch on the same pruned weights (<= 1e-4 and the same
+                argmax in float32, <= 3e-2 in bf16) and the device's busy
+                share of one such step (``torch.profiler``); B1 at the dense-FFN,
+                expert and shared-expert shapes against its plain version
+                and float64, twice (bit for bit), timed; one prefill of 4 x
+                64 tokens through the ``dense``, ``ell`` and ``sell``
+                dispatch and ``select_dispatch_format``'s pick on its
+                routing histogram; ``BatchedServer`` with 2 and with 4 slots
+                on 32 requests of 4-16 prompt tokens, 32 new tokens each,
+                each tick timed (p50 over all ticks and over each half of
+                them): B1 must be the only kernel and its launches must
+                equal the engine's SpMVs (ticks x slots x 198); then the
+                serve CLI's LM mode with ``--arch deepseek-moe-16b``
+                in-process (reduced config, as the CLI runs).
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-11 (each path of phase 11
-on its own) and read just after each:
+Launch counters are set to 0 just before phases 4-13 (each path of phases
+11-13 on its own) and read just after each:
 a kernel of the path that was launched no time fails the run. Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
-CSR kernel's entry also carries its numbers at the LM's FFN shape), the
+CSR kernel's entry also carries its numbers at the LM's FFN shapes and at an
+expert slice of the MoE), the
 ``nvidia-smi`` name/power-limit line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the exit code
 is not 0; without a CUDA device the script exits at once with code 2 and
@@ -238,8 +277,15 @@ if not torch.cuda.is_available():
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.features import extract_features  # noqa: E402
+from repro_torch.core.features import (  # noqa: E402
+    extract_features,
+    features_from_assignment_histogram,
+)
+from repro_torch.core.autotuner import AutoSpMV  # noqa: E402
+from repro_torch.core.dataset import collect_dataset  # noqa: E402
+from repro_torch.core.hpo import tune_model  # noqa: E402
 from repro_torch.core.objectives import CalibratedCostModel, ObjectiveValues  # noqa: E402
+from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig, _config_row  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bcsr import bcsr_spmv, bcsr_spmv_plain  # noqa: E402
@@ -336,10 +382,15 @@ from repro_torch.kernels.spmspv import (  # noqa: E402
     spmspv_slots_read,
 )
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.ml import accuracy_score, r2_score, train_test_split  # noqa: E402
+from repro_torch.ml.model_zoo import CLASSIFIER_ZOO, REGRESSOR_ZOO  # noqa: E402
+from repro_torch.ml.model_zoo import build as build_estimator  # noqa: E402
 from repro_torch.launch import solve as launch_solve  # noqa: E402
 from repro_torch.models import decode_step, init_cache, init_params, model_specs, prefill  # noqa: E402
 from repro_torch.models.layers import attention, mlp  # noqa: E402
 from repro_torch.models.model import _logits  # noqa: E402
+from repro_torch.models.moe import _capacity as moe_capacity  # noqa: E402
+from repro_torch.models.moe import select_dispatch_format  # noqa: E402
 from repro_torch.models.param import tree_map  # noqa: E402
 from repro_torch.models.sparse_linear import SparseInferenceEngine, prune_model_ffns  # noqa: E402
 from repro_torch.obs import FleetSync, SloTracker  # noqa: E402
@@ -480,6 +531,26 @@ LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS, LM_REQUESTS = 4, 256, 16, 8
 SPMM_KS = (1, 4, 16, 64)
 FFN_KS = (4, 16)
 FFN_CHECK = ("g0x0.mlp.w_up", "g0x0.mlp.w_down")
+# zoo phase: each classifier family beside one regressor family (six pairs:
+# every family of both zoos once), the dataset they learn from (the suite's
+# first 8 matrices and 40 random ones, labelled by the H100 cost model), the
+# TPE trials per family, the records each predictor's regressor fits on and
+# the regression task's (fit, held-out) records
+ZOO_PAIRS = (("nearest_centroid", "bayesian_ridge"), ("decision_tree", "lasso"),
+             ("svm", "lars"), ("gradient_boosting", "decision_tree"),
+             ("random_forest", "random_forest"), ("mlp", "mlp"))
+ZOO_DATA = {"scale": 0.0015, "names": MATRIX_NAMES[:8], "n_extra": 40}
+ZOO_TRIALS, ZOO_REG_SAMPLES, ZOO_REG_SPLIT = 3, 300, (200, 1000)
+# moe phase: deepseek-moe-16b as published (d 2,048, 16 heads, vocabulary
+# 102,400, 64 routed experts of 1,408 with top-6 and 2 shared, a dense FFN of
+# 10,944 in layer 0; bf16 params, float32 router) with the depth cut to 2
+# layers; every FFN matrix and expert slice pruned to 5 % (3 + 195 matrices)
+MOE_ARCH, MOE_LAYERS, MOE_DENSITY = "deepseek-moe-16b", 2, 0.05
+MOE_SLOTS, MOE_REQUESTS, MOE_NEW_TOKENS, MOE_MAX_LEN = (2, 4), 32, 32, 64
+MOE_CHECK_SLOTS = 4
+MOE_DISPATCH_BATCH = (4, 64)  # (prompts, tokens) of the dispatch-format prefill
+MOE_B1_CHECK = ("head0.mlp.w_up", "head0.mlp.w_down", "g0x0.moe.w_up.0", "g0x0.moe.w_down.0",
+                "g0x0.moe.shared.w_up")
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -2128,15 +2199,15 @@ def lm_decode_check(pruned, cfg, engine, prompt_len: int = 8) -> tuple[dict, dic
     return out, seen
 
 
-def check_b1_ffn(engine, seen: dict) -> list[dict]:
+def check_b1_served(engine, seen: dict, names) -> list[tuple[dict, tuple]]:
     """Hold the engine's planned B1 kernels, at the schedules the decode path
     serves them with, against their plain version and a float64 host
-    product on the decode tick's token vectors, for each FFN_CHECK matrix;
-    time the first beside its bound, plain version and library call.
-    Comparison launches only; beside each, the parent design, the plan and
-    the sweep of CTA shapes."""
+    product on the decode tick's token vectors, for each of ``names``;
+    time each beside its bound, plain version and library call.
+    Comparison launches only. Returns each row with (kernel call, plain
+    call, planned kernel, x, y) of its last token vector."""
     rows = []
-    for n in FFN_CHECK:
+    for n in names:
         kernel = engine.plan(n, "latency")[1]
         if type(kernel.mat).__name__ != "CSR" or kernel.schedule.accum_dtype != "float32":
             raise AssertionError(f"{n} is not served by B1 in float32: {kernel.schedule}")
@@ -2160,11 +2231,20 @@ def check_b1_ffn(engine, seen: dict) -> list[dict]:
             raise AssertionError(f"B1 at {n}: two launches differ")
         bound_ms, bound_by, nbytes = bound(ins, out_elems, flops)
         row.update(bit_identical=True, ms=timed(kern), plain_ms=timed(plain, reps=5),
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   launch=b1_design(kernel.mat, kernel.schedule))
         library_call("csr", A, kernel.mat, x, ref64[:, -1], row)
+        rows.append((row, (kern, plain, kernel, x, y_k)))
+    return rows
+
+
+def check_b1_ffn(engine, seen: dict) -> list[dict]:
+    """``check_b1_served`` at the LM's FFN shapes, each row beside the
+    parent design and the sweep of CTA shapes."""
+    rows = []
+    for row, (kern, plain, kernel, x, y_k) in check_b1_served(engine, seen, FFN_CHECK):
         row.update(against_parent(kern, parent_call(kernel.mat, x, kernel.schedule), y_k))
-        row["launch"] = {**b1_design(kernel.mat, kernel.schedule),
-                         "by_shape": b1_sweep(kernel.mat, x, kernel.schedule, plain(), 1e-4)}
+        row["launch"]["by_shape"] = b1_sweep(kernel.mat, x, kernel.schedule, plain(), 1e-4)
         rows.append(row)
     return rows
 
@@ -2370,6 +2450,368 @@ def run_lm_phase(cfg) -> tuple[dict, dict, dict]:
                "fp32_recompiles": engine.stats.fp32_recompiles,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     return payload, launches, tick
+
+
+# --------------------------------------------------------------------- zoo
+def zoo_tasks(ds) -> dict:
+    """The two learning tasks of the paper's §5.4 on the dataset, each split
+    for a held-out score: features -> the latency-best format (what
+    run-time mode's classifier learns; one row per matrix, 75/25) and
+    (features, config) -> log latency (what the regressors learn;
+    ``ZOO_REG_SPLIT`` records to fit and to score, drawn without
+    replacement)."""
+    mats = ds.matrices
+    X = np.stack([ds.for_matrix(m)[0].features.log_vector() for m in mats])
+    y = np.array([ds.best_record(m, "latency").config.fmt for m in mats])
+    Xtr, Xte, ytr, yte = train_test_split(X, y, 0.25, seed=SEED)
+    recs = ds.feasible()
+    sel = np.random.default_rng(SEED).choice(len(recs), sum(ZOO_REG_SPLIT), replace=False)
+    names = format_names()
+    Xr = np.stack([np.concatenate([recs[i].features.log_vector(),
+                                   _config_row(recs[i].config, names)]) for i in sel])
+    yr = np.log(np.maximum([recs[i].latency for i in sel], 1e-30))
+    k = ZOO_REG_SPLIT[0]
+    return {"clf": (Xtr, Xte, ytr, yte), "reg": (Xr[:k], Xr[k:], yr[:k], yr[k:]),
+            "sizes": {"matrices": len(mats), "records": len(ds), "clf_train": len(ytr),
+                      "clf_test": len(yte), "reg_train": k, "reg_test": len(yr) - k,
+                      "formats": sorted(set(y.tolist()))}}
+
+
+def tune_and_score(entry, task, metric) -> dict:
+    """``core.hpo.tune_model`` (TPE, 3-fold) on the task's training part,
+    then the tuned model fit there and scored on the held-out part; the MLP
+    trains on the card."""
+    Xtr, Xte, ytr, yte = task
+    t0 = time.perf_counter()
+    res = tune_model(entry, Xtr, ytr, metric, n_trials=ZOO_TRIALS, cv=3, seed=SEED,
+                     device=DEVICE)
+    tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = build_estimator(entry, DEVICE, **res.best_params).fit(Xtr, ytr)
+    fit_s = time.perf_counter() - t0
+    return {"best_params": res.best_params, "cv_score": res.best_value,
+            "held_out": float(metric(yte, model.predict(Xte))), "tune_s": tune_s,
+            "fit_s": fit_s, "trials": res.n_trials}
+
+
+def serve_with(session, pool, fps, xs, ref64s) -> tuple[dict, dict, dict]:
+    """Both Auto-SpMV modes over the pool through ``session``: compile-time
+    mode (latency) and run-time mode for the four objectives per matrix,
+    every converted kernel run once on the matrix's x and held against the
+    float64 host product. Returns (rows, picks, kernel calls per format)."""
+    rows, picks, calls = [], {}, {f: 0 for f in BLOCK_FORMATS}
+    for n, dense in pool.items():
+        ct = session.compile_time_optimize(dense, "latency", fingerprint=fps[n])
+        picks[f"{n}/compile"] = sched_tag(ct.schedule)
+        runs = [("compile", "latency", ct.kernel)]
+        for obj in OBJECTIVES:
+            try:
+                rt = session.run_time_optimize(dense, obj, n_iterations=10_000,
+                                               fingerprint=fps[n])
+            except InfeasibleConfig as exc:  # the picked format's storage guard refused
+                picks[f"{n}/{obj}"] = "infeasible"
+                rows.append({"matrix": n, "mode": "run", "objective": obj,
+                             "infeasible": str(exc)[:120]})
+                continue
+            picks[f"{n}/{obj}"] = rt.best_format
+            if rt.kernel is not None:
+                runs.append(("run", obj, rt.kernel))
+        for mode, obj, kernel in runs:
+            fmt = type(kernel.mat).__name__.lower()
+            y = kernel(torch.as_tensor(xs[n], device=DEVICE)).cpu().numpy()
+            calls[fmt] += 1
+            err, tol = scaled_err(y, ref64s[n]), tol_of(kernel.schedule)
+            row = {"matrix": n, "mode": mode, "objective": obj, "format": fmt,
+                   "schedule": sched_tag(kernel.schedule), "err": err, "tol": tol}
+            rows.append(row)
+            if not (y.shape == ref64s[n].shape and np.isfinite(y).all() and err <= tol):
+                raise AssertionError(f"zoo: served y wrong: {row}")
+    return rows, picks, calls
+
+
+def run_zoo_phase(tuner, pool, fps) -> tuple[dict, dict]:
+    """Every classifier and regressor family of the zoo on the card: the
+    port's dataset (``collect_dataset``, labelled by the H100_SXM cost
+    model); per family ``tune_model`` and a held-out score on its task; an
+    ``AutoSpmvPredictor`` of each pair (classifier, regressor) fit with the
+    Table 4 defaults (the MLPs train on the card) and served in both modes
+    over the pool through an ``AutoSpmvSession``: launches per format, each
+    ``y`` against float64, and the picks' agreement with the
+    ``decision_tree`` predictor's. Returns (payload, launches)."""
+    t0 = time.perf_counter()
+    ds = collect_dataset(**ZOO_DATA)
+    tasks = zoo_tasks(ds)
+    data_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 71)
+    xs = {n: rng.normal(size=d.shape[1]).astype(np.float32) for n, d in pool.items()}
+    ref64s = {n: host_product(d, xs[n]) for n, d in pool.items()}
+    families, launches, all_picks = [], {k: 0 for k in WRAPPERS}, {}
+    for clf, reg in ZOO_PAIRS:
+        row = {"classifier": clf, "regressor": reg,
+               "classifier_tuned": tune_and_score(CLASSIFIER_ZOO[clf], tasks["clf"],
+                                                  accuracy_score),
+               "regressor_tuned": tune_and_score(REGRESSOR_ZOO[reg], tasks["reg"], r2_score)}
+        t0 = time.perf_counter()
+        pred = AutoSpmvPredictor(PredictorConfig(
+            model_name=clf, regressor_name=reg, max_regressor_samples=ZOO_REG_SAMPLES,
+            device=DEVICE)).fit(ds)
+        torch.cuda.synchronize()
+        row["predictor_fit_s"] = time.perf_counter() - t0
+        session = AutoSpmvSession(AutoSpMV(pred, tuner.overhead, device=DEVICE))
+        reset_launches()
+        t0 = time.perf_counter()
+        served, picks, calls = serve_with(session, pool, fps, xs, ref64s)
+        torch.cuda.synchronize()
+        row["serve_s"] = time.perf_counter() - t0
+        got = read_launches()
+        check_launches(f"zoo({clf}, {reg})", got, {**{k: 0 for k in WRAPPERS}, **calls})
+        row.update(launches={f: got[f] for f in BLOCK_FORMATS if got[f]}, served=served,
+                   picks=picks, session=session.stats.as_dict())
+        all_picks[clf] = picks
+        for k in launches:
+            launches[k] += got[k]
+        families.append(row)
+    base = all_picks["decision_tree"]
+    for row in families:
+        p = all_picks[row["classifier"]]
+        row["agreement_with_decision_tree"] = {
+            "compile": float(np.mean([p[k] == base[k] for k in p if k.endswith("/compile")])),
+            "run": float(np.mean([p[k] == base[k] for k in p if not k.endswith("/compile")]))}
+    return {"data": {**ZOO_DATA, "names": list(ZOO_DATA["names"]), "seconds": data_s,
+                     "hw": ds.meta["hw"], **tasks["sizes"]},
+            "families": families}, launches
+
+
+# --------------------------------------------------------------------- moe
+def moe_config():
+    """``deepseek-moe-16b`` at its published width with the depth cut to
+    ``MOE_LAYERS``: layer 0 attention + the dense FFN, layer 1 MoE, served
+    with the dense dispatch (the engine path's, as the serve CLI forces)."""
+    return get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS, dispatch_format="dense")
+
+
+def moe_logits_check(pruned, cfg, engine) -> tuple[dict, dict]:
+    """One decode step of ``MOE_CHECK_SLOTS`` tokens with the engine (every
+    expert slice a planned B1 SpMV, weighted by the gate) against the same
+    step through the dense dispatch, on the same pruned weights: float32
+    compute (TF32 off; scaled logits error <= 1e-4, same argmax) and the
+    config's bf16 (<= 3e-2). Returns (checks, the bf16 step's token vectors
+    at MOE_B1_CHECK)."""
+    rng = np.random.default_rng(SEED + 51)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (MOE_CHECK_SLOTS, 8)),
+                             dtype=torch.int32, device=DEVICE)
+    out, seen = {}, {}
+    for compute, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        c = cfg.replace(compute_dtype=compute)
+        logits, cache, aux = prefill(pruned, c, init_cache(c, MOE_CHECK_SLOTS, 64, DEVICE),
+                                     tokens=tokens)
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.full((MOE_CHECK_SLOTS, 1), 8, dtype=torch.int32, device=DEVICE)
+        dense, _ = decode_step(pruned, c, cache, nxt, pos)
+        handle = CaptureHandle(engine.bind("latency"), MOE_B1_CHECK)
+        before = engine.stats.spmv_matmuls
+        sparse, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True, engine=handle)
+        d, sp = dense.cpu().numpy(), sparse.cpu().numpy()
+        row = {"err": scaled_err(sp, d), "tol": tol,
+               "argmax_equal": bool((d.argmax(-1) == sp.argmax(-1)).all()),
+               "max_abs_logit": float(np.abs(d).max()), "shape": list(sp.shape),
+               "engine_matmuls": engine.stats.spmv_matmuls - before,
+               "prefill_tokens_per_expert": aux["tokens_per_expert"].cpu().tolist(),
+               "prefill_moe_aux": float(aux["moe_aux"])}
+        out[compute] = row
+        if not (np.isfinite(sp).all() and sp.shape == (MOE_CHECK_SLOTS, 1, cfg.vocab_size)
+                and row["err"] <= tol and (compute != "float32" or row["argmax_equal"])
+                and row["engine_matmuls"] == engine.stats.spmv_layers):
+            raise AssertionError(f"MoE sparse decode differs from dense in {compute}: {row}")
+        if compute == cfg.compute_dtype:
+            seen = handle.seen
+            # the device's busy share of one sparse decode step (timing
+            # launches, not the counted main path)
+            row["profile"] = profile_tick(lambda: decode_step(
+                pruned, c, cache, nxt, pos, unroll_layers=True, engine=engine.bind("latency")))
+    return out, seen
+
+
+def moe_dispatch_runs(pruned, cfg) -> dict:
+    """One prefill of a batch of prompts through each dispatch format (no
+    engine): finite logits, the routing histogram, the distance from the
+    dense dispatch (``ell`` / ``sell`` drop capacity overflow), and
+    ``select_dispatch_format``'s pick on the histogram."""
+    rng = np.random.default_rng(SEED + 61)
+    B, T = MOE_DISPATCH_BATCH
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)), dtype=torch.int32,
+                             device=DEVICE)
+    runs, dense_logits = {}, None
+    for d in ("dense", "ell", "sell"):
+        c = cfg.replace(dispatch_format=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, aux = prefill(pruned, c, init_cache(c, B, T, DEVICE), tokens=tokens)
+        torch.cuda.synchronize()
+        tpe = aux["tokens_per_expert"].cpu().numpy()
+        lg = logits.float().cpu().numpy()
+        if dense_logits is None:
+            dense_logits = lg
+        runs[d] = {"host_ms": 1e3 * (time.perf_counter() - t0),
+                   "finite": bool(np.isfinite(lg).all()), "shape": list(lg.shape),
+                   "err_vs_dense": scaled_err(lg, dense_logits),
+                   "argmax_equal_dense": float((lg.argmax(-1) == dense_logits.argmax(-1)).mean()),
+                   "moe_aux": float(aux["moe_aux"])}
+        if not (runs[d]["finite"] and lg.shape == (B, T, cfg.vocab_size)
+                and int(tpe.sum()) == B * T * cfg.top_k):
+            raise AssertionError(f"MoE prefill through {d} dispatch: {runs[d]}")
+    feats = features_from_assignment_histogram(tpe.astype(np.int64))
+    return {"batch": [B, T], "capacity": moe_capacity(T, cfg), "runs": runs,
+            "tokens_per_expert": tpe.tolist(),
+            "histogram": {"avg": feats.avg_nnz, "std": feats.std_nnz, "max": float(tpe.max()),
+                          "ell_ratio": feats.ell_ratio},
+            "select_dispatch_format": select_dispatch_format(tpe)}
+
+
+def serve_moe(pruned, cfg, engine, slots: int) -> tuple[dict, dict]:
+    """``MOE_REQUESTS`` requests through ``BatchedServer`` over ``slots``
+    slots with the engine; every tick timed on the host clock. B1 must be
+    the only kernel, launched once per slot per registered matrix per tick:
+    the engine's SpMV count."""
+    server = BatchedServer(pruned, cfg, ServeConfig(batch_slots=slots, max_len=MOE_MAX_LEN,
+                                                    max_new_tokens=MOE_NEW_TOKENS),
+                           engine=engine)
+    rng = np.random.default_rng(SEED + slots)
+    reqs = [Request(rid=i, max_new_tokens=MOE_NEW_TOKENS, slo="latency-critical",
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=int(rng.integers(4, 17))).tolist())
+            for i in range(MOE_REQUESTS)]
+    ticks, tick = [], server._decode_tick
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        tick()  # ends with the tick's tokens on the host
+        ticks.append(time.perf_counter() - t0)
+
+    server._decode_tick = timed_tick
+    matmuls = engine.stats.spmv_matmuls
+    reset_launches()
+    t0 = time.perf_counter()
+    server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_tokens = sum(len(r.generated) for r in reqs)
+    spmvs = (engine.stats.spmv_matmuls - matmuls) * slots  # one SpMV per slot per call
+    tk = 1e3 * np.asarray(ticks)
+    row = {"slots": slots, "requests": len(reqs), "ticks": server.ticks, "wall_s": wall,
+           "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
+           "tick_ms": {"p50": float(np.median(tk)), "p90": float(np.percentile(tk, 90)),
+                       "mean": float(tk.mean()), "max": float(tk.max()),
+                       "p50_by_half": [float(np.median(h)) for h in np.array_split(tk, 2)]},
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "generated": [r.generated for r in reqs],
+           "engine_spmvs": spmvs, "b1_launches": launches["csr"],
+           "b1_launches_per_tick": launches["csr"] / max(server.ticks, 1)}
+    bad = []
+    if not all(len(r.generated) == MOE_NEW_TOKENS and r.done for r in reqs):
+        bad.append("a request did not get its tokens")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        bad.append("a token outside the vocabulary")
+    if launches["csr"] != spmvs or spmvs != server.ticks * slots * engine.stats.spmv_layers:
+        bad.append(f"B1 launches {launches['csr']} != the engine's {spmvs} SpMVs "
+                   f"({server.ticks} ticks x {slots} slots x {engine.stats.spmv_layers})")
+    if sum(launches.values()) != launches["csr"]:
+        bad.append(f"a kernel other than B1 ran in the MoE decode path: {launches}")
+    if bad:
+        raise AssertionError(f"moe serve: {bad}: {row}")
+    return row, launches
+
+
+def run_moe_phase() -> tuple[dict, dict]:
+    """MoE LM serving of ``deepseek-moe-16b`` at its published width (depth
+    cut to ``MOE_LAYERS``) through the public entry points: params on the
+    card from a seeded generator (bf16, float32 router), the CLI's tuner,
+    every FFN matrix and expert slice pruned to ``MOE_DENSITY`` into a
+    ``SparseInferenceEngine`` and planned; sparse vs dense-dispatch logits;
+    B1 at the expert, shared-expert and dense-FFN shapes against its plain
+    version and float64; one prefill through each dispatch format;
+    ``BatchedServer`` over each of ``MOE_SLOTS`` (the counted main path);
+    the serve CLI in LM mode with a MoE config (reduced, as the CLI runs).
+    Returns (payload, launches of the served runs and the CLI)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config()
+    times = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    times["init_params_s"] = time.perf_counter() - t0
+    expert_bytes = sum(params["groups"][0]["moe"][k].numel() * params["groups"][0]["moe"][k]
+                       .element_size() for k in ("w_gate", "w_up", "w_down"))
+    t0 = time.perf_counter()
+    tuner = launch_serve.build_tuner(scale=0.0008, names=MATRIX_NAMES[:4], n_extra=0,
+                                     fit_overhead=False, device=DEVICE)
+    times["tuner_s"] = time.perf_counter() - t0
+    session = AutoSpmvSession(tuner)
+    engine = SparseInferenceEngine(session)
+    t0 = time.perf_counter()
+    pruned = prune_model_ffns(params, cfg, engine, density=MOE_DENSITY)
+    torch.cuda.synchronize()
+    times["prune_s"] = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    n_planned = engine.plan_all("latency")
+    torch.cuda.synchronize()
+    times["plan_all_s"] = time.perf_counter() - t0
+    per_moe = 3 * cfg.n_experts + 3 * (cfg.n_shared_experts > 0)
+    want = 3 * len(cfg.first_blocks) + per_moe * cfg.n_groups
+    if not (engine.stats.registered == engine.stats.spmv_layers == n_planned == want):
+        raise AssertionError(f"expected {want} SpMV-eligible MoE matrices: {engine.stats}")
+    entries = sum(int(np.prod(engine.layer(n).weight_t.shape)) for n in engine._by_name)
+
+    t0 = time.perf_counter()
+    checks, seen = moe_logits_check(pruned, cfg, engine)
+    checks["b1"] = [row for row, _ in check_b1_served(engine, seen, MOE_B1_CHECK)]
+    checks["dispatch"] = moe_dispatch_runs(pruned, cfg)
+    times["check_s"] = time.perf_counter() - t0
+
+    serve, launches = [], {k: 0 for k in WRAPPERS}
+    for slots in MOE_SLOTS:
+        row, got = serve_moe(pruned, cfg, engine, slots)
+        serve.append(row)
+        for k in launches:
+            launches[k] += got[k]
+
+    # the CLI's LM mode with a MoE config, in-process, reduced, on the card
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_done = launch_serve.main(["--arch", MOE_ARCH, "--lm-sparse", "--requests", "2",
+                                  "--slots", "2", "--max-new-tokens", "3", "--max-len", "64"])
+    torch.cuda.synchronize()
+    cli_launches = read_launches()
+    reduced = get_config(MOE_ARCH, reduced_config=True)
+    per_token = 3 * len(reduced.first_blocks) + (3 * reduced.n_experts + 3) * reduced.n_groups
+    cli = {"wall_s": time.perf_counter() - t0, "requests": len(cli_done),
+           "generated": [r.generated for r in cli_done], "b1_launches": cli_launches["csr"],
+           "matrices": per_token}
+    if not (len(cli_done) == 2 and all(len(r.generated) == 3 for r in cli_done)
+            and cli_launches["csr"] > 0 and cli_launches["csr"] % (per_token * 2) == 0):
+        raise AssertionError(f"moe CLI: {cli}")
+    for k in launches:
+        launches[k] += cli_launches[k]
+    payload = {
+        "config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                   "blocks": list(cfg.first_blocks) + list(cfg.pattern) * cfg.n_groups,
+                   "d_model": cfg.d_model, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+                   "vocab": cfg.vocab_size, "experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "shared": cfg.n_shared_experts, "d_ff_expert": cfg.d_ff_expert,
+                   "params": cfg.param_dtype, "compute": cfg.compute_dtype,
+                   "dispatch": cfg.dispatch_format},
+        "reduced": [f"depth: {get_config(MOE_ARCH).n_layers} -> {cfg.n_layers} layers "
+                    "(layer 0 attention + dense FFN, layer 1 MoE); widths as published"],
+        "density": MOE_DENSITY, "matrices": want, "pruned_entries": entries,
+        "expert_bytes_on_device": expert_bytes, "times": times, "checks": checks,
+        "serve": serve, "cli": cli, "engine": engine.summary(),
+        "session": session.stats.as_dict(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return payload, launches
 
 
 # -------------------------------------------------------------------- spmm
@@ -3188,6 +3630,25 @@ def main() -> None:
         launches[k] += got[k]
     torch.cuda.empty_cache()
     emit("observed", seconds=time.perf_counter() - t0, **observed)
+
+    # ---- zoo: every predictor family serves both modes (B1-B4) ----------
+    t0 = time.perf_counter()
+    zoo, got = run_zoo_phase(tuner, pool, fps)
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("zoo", seconds=time.perf_counter() - t0, launches=got, **zoo)
+
+    # ---- moe: deepseek-moe-16b at its published width through B1 ---------
+    t0 = time.perf_counter()
+    moe_run, got = run_moe_phase()
+    for k in launches:
+        launches[k] += got[k]
+    # B1 at an expert slice's shape, where the MoE path launches it most
+    checked["csr"]["at_moe_expert"] = {k: v for k, v in moe_run["checks"]["b1"][2].items()
+                                       if k != "launch"}
+    torch.cuda.empty_cache()
+    emit("moe", seconds=time.perf_counter() - t0, launches=got, **moe_run)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

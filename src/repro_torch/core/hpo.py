@@ -24,6 +24,8 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch.ml.model_zoo import build
+
 SearchSpace = dict[str, list[Any]]
 Objective = Callable[[dict[str, Any]], float]  # larger is better
 
@@ -144,23 +146,23 @@ def tune_model(
     cv: int = 3,
     method: str = "tpe",
     seed: int = 0,
+    device=None,
 ) -> StudyResult:
     """Cross-validated HPO of one zoo model; returns the study result.
 
     ``metric(y_true, y_pred) -> float`` (larger better). The tuned params
     are merged over the zoo defaults, mirroring how Optuna-tuned values
-    override scikit-learn defaults in the paper (§6.4).
+    override scikit-learn defaults in the paper (§6.4). ``device`` goes to
+    the families that train on one (the MLPs; ``None`` = the card).
     """
     X, y = np.asarray(X), np.asarray(y)
     n = X.shape[0]
     cv = max(2, min(cv, n))
 
     def objective(params: dict[str, Any]) -> float:
-        kw = dict(zoo_entry["defaults"])
-        kw.update(params)
         scores = []
         for tr, va in kfold_indices(n, cv, seed=seed):
-            model = zoo_entry["ctor"](**kw)
+            model = build(zoo_entry, device, **params)
             model.fit(X[tr], y[tr])
             scores.append(metric(y[va], model.predict(X[va])))
         return float(np.mean(scores))

@@ -25,7 +25,7 @@ from repro_torch.core.hpo import tune_model
 from repro_torch.core.tuning_space import ALL_KNOBS, KNOBS, TuningConfig
 from repro_torch.kernels.common import KernelSchedule
 from repro_torch.ml.metrics import accuracy_score
-from repro_torch.ml.model_zoo import CLASSIFIER_ZOO, REGRESSOR_ZOO
+from repro_torch.ml.model_zoo import CLASSIFIER_ZOO, REGRESSOR_ZOO, build
 from repro_torch.sparse.registry import default_format, format_names
 from repro_torch.utils.logging import get_logger
 
@@ -71,6 +71,9 @@ class PredictorConfig:
     tune: bool = False  # run TPE HPO per classifier (paper §5.4 step 3)
     n_trials: int = 12
     seed: int = 0
+    # where the families that train on a device (the MLPs) fit and predict;
+    # None = the card (raises where there is none). The numpy families ignore it.
+    device: str | None = None
 
 
 @dataclass
@@ -133,10 +136,10 @@ class AutoSpmvPredictor:
             y = np.array([r.objective(obj) for r in recs])
             y = np.log(np.maximum(y, 1e-30))  # objectives span decades
             entry = REGRESSOR_ZOO[self.config.regressor_name]
-            kw = dict(entry["defaults"])
-            if "max_depth" in kw:
+            kw = {}
+            if "max_depth" in entry["defaults"]:
                 kw["max_depth"] = self.config.regressor_max_depth
-            reg = entry["ctor"](**kw)
+            reg = build(entry, self.config.device, **kw)
             reg.fit(Xr, y)
             self.regressor_[obj] = reg
         return self
@@ -146,7 +149,7 @@ class AutoSpmvPredictor:
         entry = CLASSIFIER_ZOO[self.config.model_name]
         if len(np.unique(y)) == 1:
             return _ConstantClassifier(y[0])
-        kw = dict(entry["defaults"])
+        kw = {}
         if self.config.tune and len(y) >= 6:
             res = tune_model(
                 entry,
@@ -156,9 +159,10 @@ class AutoSpmvPredictor:
                 n_trials=self.config.n_trials,
                 cv=3,
                 seed=self.config.seed,
+                device=self.config.device,
             )
             kw.update(res.best_params)
-        clf = entry["ctor"](**kw)
+        clf = build(entry, self.config.device, **kw)
         clf.fit(X, y)
         return clf
 

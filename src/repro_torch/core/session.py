@@ -1031,7 +1031,7 @@ def build_tuner(
     device = resolve_device(device)
     names = tuple(names) if names is not None else MATRIX_NAMES[:8]
     ds = collect_dataset(scale=scale, names=names, n_extra=n_extra)
-    pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500)).fit(ds)
+    pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=device)).fit(ds)
     overhead = None
     if fit_overhead:
         overhead = OverheadPredictor().fit(

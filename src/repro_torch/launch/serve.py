@@ -9,10 +9,13 @@ serving from the CPU).
 LM mode runs the slot-batched ``BatchedServer`` on synthetic requests with
 the architecture's reduced config, as the reference launcher does (full
 width is driven through the public functions, e.g. by ``chip_smoke.py``).
-With ``--lm-sparse`` every FFN weight is magnitude-pruned to
-``--lm-density`` and registered with a ``SparseInferenceEngine``: each
-decode token then goes through session-planned SpMV kernels (the CSR kernel
-of compile-time mode). ``--slo`` stamps an SLO class on every request
+With ``--lm-sparse`` every FFN weight (for a MoE config: every expert's
+slices and the shared experts too) is magnitude-pruned to ``--lm-density``
+and registered with a ``SparseInferenceEngine``: each decode token then goes
+through session-planned SpMV kernels (the CSR kernel of compile-time mode).
+A MoE config is then served with ``dispatch_format="dense"``, as the
+reference does: the engine runs every expert on every token, weighted by
+the gate. ``--slo`` stamps an SLO class on every request
 (``mixed`` cycles all four); ``--summary-export`` writes the server summary
 as JSON.
 
@@ -102,7 +105,11 @@ def serve_lm(args) -> list[Request]:
     if cfg.prefix_len:
         cfg = cfg.replace(prefix_len=0, prefix_lm=False)  # text-only serving demo
     engine = None
-    gen =torch.Generator(device=device).manual_seed(args.seed)
+    if args.lm_sparse and cfg.n_experts and cfg.dispatch_format != "dense":
+        # the engine's gate-masked per-expert path mirrors the dense
+        # dispatch exactly; ell/sell drop capacity-overflow tokens
+        cfg = cfg.replace(dispatch_format="dense")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=device)
     if args.lm_sparse:
         engine, params = _build_lm_engine(args, cfg, params, device)

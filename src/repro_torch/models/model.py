@@ -3,9 +3,9 @@
 Layer layout = optional ``first_blocks`` + ``pattern`` repeated
 ``n_groups`` times (params stacked on a leading group axis, walked by a
 Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds
-``"attn"`` and ``"local"`` are ported; ``"moe"``, ``"rec"``, ``"mlstm"``
-and ``"slstm"`` raise ``NotImplementedError`` (ROADMAP queue A, item 5:
-MoE in 5(a), the recurrent blocks in 5(b)).
+``"attn"``, ``"local"`` and ``"moe"`` (attention + the MoE FFN of
+``models/moe.py``) are ported; ``"rec"``, ``"mlstm"`` and ``"slstm"`` raise
+``NotImplementedError`` (the recurrent blocks, ROADMAP queue A, item 5(b)).
 
 Three entry points: ``forward`` (full sequence, no cache), ``prefill``
 (fills the serving cache over a full prompt) and ``decode_step`` (one
@@ -33,11 +33,11 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_spec,
 )
+from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.param import ParamSpec, init_params, stack_specs, torch_dtype, tree_map
 
 # block kind -> (what it needs, its ROADMAP.md queue A item)
 _LATER = {
-    "moe": ("the MoE layer (models/moe.py) and its engine path", "5(a)"),
     "rec": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
     "mlstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
     "slstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
@@ -68,6 +68,13 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
             "ln2": rmsnorm_spec(d),
             "mlp": mlp_specs(cfg),
         }
+    if kind == "moe":
+        return {
+            "ln1": rmsnorm_spec(d),
+            "attn": attention_specs(cfg),
+            "ln2": rmsnorm_spec(d),
+            "moe": moe_specs(cfg),
+        }
     raise _not_ported(kind)
 
 
@@ -90,7 +97,7 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 
 def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int):
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return attention_cache_spec(cfg, batch, max_len)
     if kind == "local":
         w = min(cfg.window, max_len)
@@ -171,14 +178,14 @@ def apply_block(
     engine=None,
     name: str = "",
 ):
-    """Returns (x, new_cache).
+    """Returns (x, new_cache, (moe_aux, tokens_per_expert)).
 
     ``engine``/``name`` route this block's FFN matmuls through the sparse
-    inference engine (models/sparse_linear.py) under ``{name}.mlp.*`` keys;
-    attention stays dense. (The reference also returns the MoE auxiliary
-    loss and expert counts per block, which are zero for these kinds;
-    ``forward``/``prefill`` return them summed, as zeros.)"""
-    if kind == "attn":
+    inference engine (models/sparse_linear.py) under ``{name}.mlp.*`` /
+    ``{name}.moe.*`` keys; attention stays dense. A block without experts
+    returns ``None`` for the auxiliaries (the reference's zeros; eager
+    PyTorch would spend two launches per layer on them)."""
+    if kind in ("attn", "moe"):
         a, new_cache = attention(
             params["attn"], rmsnorm(x, params["ln1"]), cfg,
             positions=positions, cache=cache, window=0,
@@ -190,8 +197,12 @@ def apply_block(
     else:
         raise _not_ported(kind)
     x = x + a
-    y = mlp(params["mlp"], rmsnorm(x, params["ln2"]), cfg, engine=engine, name=name)
-    return x + y, new_cache
+    h = rmsnorm(x, params["ln2"])
+    if kind == "moe":
+        y, aux, counts = moe_ffn(params["moe"], h, cfg, engine=engine, name=name)
+        return x + y, new_cache, (aux, counts)
+    y = mlp(params["mlp"], h, cfg, engine=engine, name=name)
+    return x + y, new_cache, None
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +222,7 @@ def _embed(params, cfg, tokens=None, embeds=None, prefix_embeds=None):
 
 
 def _zero_aux(cfg, device) -> dict:
-    """The reference's MoE auxiliaries, zero for the ported block kinds."""
+    """The MoE auxiliaries of a block without experts: zeros."""
     return {
         "moe_aux": torch.zeros((), dtype=torch.float32, device=device),
         "tokens_per_expert": torch.zeros(max(cfg.n_experts, 1), dtype=torch.float32, device=device),
@@ -241,11 +252,19 @@ def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None)
             "params — call with unroll_layers=True to serve sparse"
         )
     new_cache: dict[str, list] = {"head": [], "groups": [], "tail": []}
+    aux = _zero_aux(cfg, x.device)
+
+    def block(kind, p, x, c, name):
+        x, nc, block_aux = apply_block(kind, p, x, cfg, positions=positions, cache=c,
+                                       engine=engine, name=name)
+        if block_aux is not None:
+            aux["moe_aux"] = aux["moe_aux"] + block_aux[0]
+            aux["tokens_per_expert"] = aux["tokens_per_expert"] + block_aux[1]
+        return x, nc
 
     def run_list(kinds, plist, clist, x, out_key):
         for i, (kind, p, c) in enumerate(zip(kinds, plist, clist)):
-            x, nc = apply_block(kind, p, x, cfg, positions=positions, cache=c,
-                                engine=engine, name=f"{out_key}{i}")
+            x, nc = block(kind, p, x, c, f"{out_key}{i}")
             new_cache[out_key].append(nc)
         return x
 
@@ -259,8 +278,7 @@ def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None)
         for g in range(cfg.n_groups):
             p_g = tree_map(lambda a: a[g], pstack)
             c_g = tree_map(lambda a: a[g], cstack) if cstack is not None else None
-            x, nc = apply_block(kind, p_g, x, cfg, positions=positions, cache=c_g,
-                                engine=engine, name=f"g{pi}x{g}")
+            x, nc = block(kind, p_g, x, c_g, f"g{pi}x{g}")
             ncs.append(nc)
         new_cache["groups"].append(
             tree_map(lambda *a: torch.stack(a), *ncs) if cache else None
@@ -272,7 +290,7 @@ def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None)
     out_cache = (
         {k: tuple(v) for k, v in new_cache.items()} if cache else None
     )
-    return x, out_cache
+    return x, out_cache, aux
 
 
 def forward(
@@ -291,9 +309,9 @@ def forward(
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
-    x, _ = _run_blocks(params, cfg, x, positions=positions, cache=None,
-                       unroll_layers=unroll_layers, engine=engine)
-    return _logits(params, cfg, x), _zero_aux(cfg, x.device)
+    x, _, aux = _run_blocks(params, cfg, x, positions=positions, cache=None,
+                            unroll_layers=unroll_layers, engine=engine)
+    return _logits(params, cfg, x), aux
 
 
 def prefill(
@@ -312,9 +330,9 @@ def prefill(
     x = _embed(params, cfg, tokens, embeds, prefix_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
-    x, cache = _run_blocks(params, cfg, x, positions=positions, cache=cache,
-                           unroll_layers=unroll_layers, engine=engine)
-    return _logits(params, cfg, x), cache, _zero_aux(cfg, x.device)
+    x, cache, aux = _run_blocks(params, cfg, x, positions=positions, cache=cache,
+                                unroll_layers=unroll_layers, engine=engine)
+    return _logits(params, cfg, x), cache, aux
 
 
 def decode_step(
@@ -334,6 +352,6 @@ def decode_step(
     serving); requires ``unroll_layers=True`` when the config has layer
     groups, as in the reference."""
     x = _embed(params, cfg, tokens)
-    x, cache = _run_blocks(params, cfg, x, positions=positions, cache=cache,
-                           unroll_layers=unroll_layers, engine=engine)
+    x, cache, _ = _run_blocks(params, cfg, x, positions=positions, cache=cache,
+                              unroll_layers=unroll_layers, engine=engine)
     return _logits(params, cfg, x), cache

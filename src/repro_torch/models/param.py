@@ -107,7 +107,8 @@ def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> An
     ``device`` (``None`` = the card), same nesting, same layouts, same dtypes
     — the reference's pytree after ``jax.tree.map(np.asarray, params)``
     becomes the port's tree leaf for leaf. bfloat16 arrays (numpy's
-    ``ml_dtypes`` type) are carried bit for bit."""
+    ``ml_dtypes`` type) are carried bit for bit, stacked ``(E, d, f)``
+    expert leaves and the float32 router as any other leaf."""
     device = resolve_device(device)
 
     def one(a):

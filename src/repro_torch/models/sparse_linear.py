@@ -331,15 +331,17 @@ def ffn_block_names(cfg) -> list[tuple[str, str]]:
 def prune_model_ffns(params, cfg, engine: SparseInferenceEngine, density: float):
     """Magnitude-prune every FFN weight matrix in ``params`` to ``density``
     and register the pruned matrices with ``engine`` under the canonical
-    block names ``models.model._run_blocks`` threads to ``mlp``.
+    block names ``models.model._run_blocks`` threads to ``mlp``/``moe_ffn``.
 
-    Prunes dense-FFN ``w_gate``/``w_up``/``w_down``; attention, embeddings
-    and norms are untouched (MoE experts wait for the MoE slice and raise).
-    Pruning happens in fp32 on the host and the stored leaf is cast back to
-    its original dtype, with the engine registering exactly the cast-back
-    values — so the dense fallback and the SpMV route see identical
-    weights. Returns a new params tree whose pruned leaves are tensors on
-    the params' own device (prefill and the dense fallback read them there).
+    Prunes dense-FFN ``w_gate``/``w_up``/``w_down``, each MoE expert's
+    slices (``{name}.moe.{w}.{e}``) and shared-expert FFNs
+    (``{name}.moe.shared.{w}``); attention, router, embeddings and norms are
+    untouched. Pruning happens in fp32 on the host and the stored leaf is
+    cast back to its original dtype, with the engine registering exactly
+    the cast-back values — so the dense fallback and the SpMV route see
+    identical weights. Returns a new params tree whose pruned leaves are
+    tensors on the params' own device (prefill and the dense fallback read
+    them there); a stacked ``(E, d, f)`` expert leaf stays one tensor.
     """
 
     def prune_leaf(w: torch.Tensor, name: str) -> torch.Tensor:
@@ -349,11 +351,6 @@ def prune_model_ffns(params, cfg, engine: SparseInferenceEngine, density: float)
         return stored.to(w.device)
 
     def prune_block(block, name):
-        if "moe" in block:
-            raise NotImplementedError(
-                "pruning MoE experts needs the MoE slice of the port (ROADMAP.md "
-                "queue A, item 5(a))"
-            )
         block = dict(block)
         if "mlp" in block:
             sub = dict(block["mlp"])
@@ -361,6 +358,21 @@ def prune_model_ffns(params, cfg, engine: SparseInferenceEngine, density: float)
                 if k in sub:
                     sub[k] = prune_leaf(sub[k], f"{name}.mlp.{k}")
             block["mlp"] = sub
+        if "moe" in block:
+            moe = dict(block["moe"])
+            for k in ("w_gate", "w_up", "w_down"):
+                stacked = moe[k]
+                moe[k] = torch.stack(
+                    [prune_leaf(stacked[e], f"{name}.moe.{k}.{e}")
+                     for e in range(stacked.shape[0])]
+                )
+            if "shared" in moe:
+                sh = dict(moe["shared"])
+                for k in ("w_gate", "w_up", "w_down"):
+                    if k in sh:
+                        sh[k] = prune_leaf(sh[k], f"{name}.moe.shared.{k}")
+                moe["shared"] = sh
+            block["moe"] = moe
         return block
 
     params = dict(params)

@@ -3,7 +3,10 @@
 The reference module also holds top-k gradient compression with error
 feedback (``compress_gradients``, ``_topk_sparsify``,
 ``init_error_feedback``); that is training code and waits for the training
-slice of the port. ``magnitude_prune`` is pure numpy and carried over as is.
+slice of the port. ``magnitude_prune`` is pure numpy and keeps the
+reference's result bit for bit; it selects the k-th magnitude with
+``np.partition`` (linear time) where the reference sorts every entry, which
+is what pruning an LM's FFN and expert matrices on the host costs.
 """
 
 from __future__ import annotations
@@ -32,7 +35,14 @@ def magnitude_prune(w: np.ndarray, density: float) -> tuple[np.ndarray, float]:
     k = int(round(float(density) * size))
     if k <= 0:
         return out, 0.0
-    order = np.argsort(-np.abs(w).reshape(-1), kind="stable")[:k]
+    mag = np.abs(w).reshape(-1)
+    mag[np.isnan(mag)] = -1.0  # below every magnitude: last, as in the reference's sort
     out_flat, w_flat = out.reshape(-1), w.reshape(-1)
-    out_flat[order] = w_flat[order]
+    # the k-th largest magnitude; every larger one is kept, and of those
+    # equal to it the earliest flat indices (the stable sort's tie-break)
+    kth = np.partition(mag, size - k)[size - k]
+    keep = mag > kth
+    ties = np.flatnonzero(mag == kth)[: k - int(np.count_nonzero(keep))]
+    keep[ties] = True
+    out_flat[keep] = w_flat[keep]
     return out, float(np.count_nonzero(out)) / size

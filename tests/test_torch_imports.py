@@ -32,14 +32,19 @@ LM_MODULES = (
     "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen3_0_6b",
     "repro_torch.optim", "repro_torch.optim.compress", "repro_torch.models",
     "repro_torch.models.param", "repro_torch.models.layers", "repro_torch.models.model",
-    "repro_torch.models.sparse_linear",
+    "repro_torch.models.sparse_linear", "repro_torch.models.moe",
+)
+# modules of the predictor zoo
+ZOO_MODULES = (
+    "repro_torch.ml.centroid", "repro_torch.ml.svm", "repro_torch.ml.boosting",
+    "repro_torch.ml.forest", "repro_torch.ml.mlp", "repro_torch.ml.model_zoo",
 )
 
 
 def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
-    assert set(LM_MODULES) <= set(mods)
+    assert set(LM_MODULES) <= set(mods) and set(ZOO_MODULES) <= set(mods)
     assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 11
     code = (
         "import importlib, sys\n"
@@ -85,6 +90,7 @@ EXPORTS = {
     "sparse": (set(), set()),
     "telemetry": (set(), set()),
     "obs": (set(), set()),
+    "ml": (set(), set()),
 }
 
 

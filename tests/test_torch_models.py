@@ -268,14 +268,32 @@ def test_engine_needs_unrolled_layers():
 
 @pytest.mark.parametrize("kind", ["moe", "rec", "mlstm", "slstm"])
 def test_later_block_kinds_raise_not_implemented(kind):
-    _, cfg = _cfgs("tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block_specs(cfg, kind)
+    ref_cfg, cfg = _cfgs("tiny")
+    if kind == "moe":  # ported: the reference's specs (tests/test_torch_moe.py holds the rest)
+        moe_kw = dict(n_experts=4, top_k=2, d_ff_expert=32, n_shared_experts=1)
+        ref_cfg, cfg = ref_cfg.replace(**moe_kw), cfg.replace(**moe_kw)
+        got = {k: v for k, v in block_specs(cfg, kind).items()}
+        want = ref_model.block_specs(ref_cfg, kind)
+        assert got.keys() == want.keys() and set(got["moe"]) == set(want["moe"])
+        for k in ("router", "w_gate", "w_up", "w_down"):
+            assert dataclasses.astuple(got["moe"][k]) == dataclasses.astuple(want["moe"][k])
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            block_specs(cfg, kind)
     with pytest.raises(ValueError, match="unknown block kind"):
         block_specs(cfg, "conv")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-1.3b", "recurrentgemma-2b"])
 def test_configs_with_later_kinds_raise_at_their_specs(arch):
+    if arch == "deepseek-moe-16b":  # ported: the reference's parameter shapes and count
+        cfg = configs.get_config(arch, reduced_config=True)
+        ref_cfg = ref_configs.get_config(arch, reduced_config=True)
+        specs, ref_specs = model_specs(cfg), ref_model.model_specs(ref_cfg)
+        assert jax.tree.map(lambda s: s.shape, specs) == jax.tree.map(
+            lambda s: s.shape, ref_specs, is_leaf=lambda s: isinstance(s, ref_param.ParamSpec))
+        assert specs["groups"][0]["moe"]["w_up"].shape == (
+            cfg.n_groups, cfg.n_experts, cfg.d_model, cfg.d_ff_expert)
+        return
     with pytest.raises(NotImplementedError):
         model_specs(configs.get_config(arch, reduced_config=True))

@@ -285,6 +285,9 @@ def _get(url):
         return resp.status, resp.headers.get("Content-Type"), resp.read()
 
 
+_HTTP_LABEL = "http-endpoint-test"
+
+
 def test_http_endpoints_serve_the_same_json():
     bodies = []
     for mod, http_mod, reg in ((ref_slo, ref_http, ref_metrics), (slo, http, metrics)):
@@ -292,7 +295,10 @@ def test_http_endpoints_serve_the_same_json():
         for _ in range(8):
             tracker.observe("power-capped", latency_s=0.1, power_w=250.0)
         tracker.evaluate()
-        reg.get_metrics().histogram("spmv_request_latency_seconds", objective="latency").observe(1e-3)
+        # a label no other test records under: other test files in the same
+        # process fill each package's process registry differently
+        reg.get_metrics().histogram("spmv_request_latency_seconds",
+                                    objective=_HTTP_LABEL).observe(1e-3)
         server = http_mod.ObsHTTPServer(slo=tracker.snapshot, extra=lambda: {"x": 1}).start()
         bare = http_mod.ObsHTTPServer().start()
         try:
@@ -316,9 +322,10 @@ def test_http_endpoints_serve_the_same_json():
     assert ours["/metrics"][1] == ref["/metrics"][1]
     assert b"spmv_request_latency_seconds" in ours["/metrics"][2]
 
-    def lines(body):  # the samples this test recorded (modules loaded by
-        # other tests in the process register instruments of their own)
+    def lines(body):  # the samples this test recorded (other tests in the
+        # process register instruments of their own in either registry)
         return sorted(ln for ln in body.decode().splitlines()
-                      if not ln.startswith("#") and ('slo="' in ln or 'objective="latency"' in ln))
+                      if not ln.startswith("#") and f'objective="{_HTTP_LABEL}"' in ln)
 
+    assert len(lines(ours["/metrics"][2])) == 5  # count, sum, three quantiles
     assert lines(ours["/metrics"][2]) == lines(ref["/metrics"][2])

@@ -132,6 +132,22 @@ def test_magnitude_prune_bit_exact(density):
     assert empty.size == 0 and d0 == 0.0
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_magnitude_prune_selection_matches_the_reference_sort(seed):
+    """The port selects the k-th magnitude in linear time; the reference
+    sorts. Integer-valued weights (many ties), signed zeros and NaNs (last
+    in the sort) must keep the same entries, bit for bit."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(-3, 4, size=(30, 17)).astype(np.float32) * 0.5
+    w[rng.random(w.shape) < 0.1] = -0.0
+    if seed % 2:
+        w[rng.random(w.shape) < 0.2] = np.nan
+    for density in (0.02, 0.1, 0.5, 0.83, 0.999):
+        got, got_d = magnitude_prune(w, density)
+        want, want_d = ref_prune(w, density)
+        assert got.tobytes() == want.tobytes() and got_d == want_d
+
+
 def test_prunedffn_suite_matrix_matches_the_reference():
     assert "pruned-ffn" in generate.SUITE and "pruned-ffn" not in generate.MATRIX_NAMES
     a = generate.generate_by_name("pruned-ffn", scale=0.01)
@@ -454,5 +470,15 @@ def test_cli_lm_mode_on_cpu(tmp_path):
     assert sum(c["samples"] for c in slo_summary["classes"].values()) > 0
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--requests", "1"])  # the card
-    with pytest.raises(NotImplementedError):  # MoE blocks wait for their slice
-        launch_serve.main(["--arch", "deepseek-moe-16b", "--device", "cpu", "--requests", "1"])
+    # a MoE config serves sparse with the dense dispatch forced, as the
+    # reference CLI does: every expert slice and shared expert is planned
+    moe_out = tmp_path / "moe.json"
+    moe_done = launch_serve.main(["--arch", "deepseek-moe-16b", "--lm-sparse", "--device", "cpu",
+                                  "--requests", "2", "--slots", "2", "--max-new-tokens", "2",
+                                  "--max-len", "32", "--summary-export", str(moe_out)])
+    assert [len(r.generated) for r in moe_done] == [2, 2]
+    moe_cfg = configs.get_config("deepseek-moe-16b", reduced_config=True)
+    n_moe = 3 + (3 * moe_cfg.n_experts + 3) * moe_cfg.n_groups
+    engine = json.loads(moe_out.read_text())["engine"]
+    assert engine["registered"] == engine["spmv_layers"] == n_moe
+    assert engine["objectives"]["latency"] == {"plans": n_moe, "formats": "csr"}
