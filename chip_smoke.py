@@ -218,24 +218,57 @@ no network. Phases, each printing one JSON object on a line of its own:
                 64 tokens through the ``dense``, ``ell`` and ``sell``
                 dispatch and ``select_dispatch_format``'s pick on its
                 routing histogram; ``BatchedServer`` with 2 and with 4 slots
-                on 32 requests of 4-16 prompt tokens, 32 new tokens each,
+                on 16 requests of 4-16 prompt tokens, 32 new tokens each,
                 each tick timed (p50 over all ticks and over each half of
                 them): B1 must be the only kernel and its launches must
                 equal the engine's SpMVs (ticks x slots x 198); then the
                 serve CLI's LM mode with ``--arch deepseek-moe-16b``
                 in-process (reduced config, as the CLI runs).
+14. ``recurrent`` the recurrent blocks at full width. (a)
+                ``recurrentgemma-2b`` as published (d 2,560, 10 heads, MQA
+                of head_dim 256, GeGLU d_ff 7,680, vocabulary 256,000,
+                RG-LRU width 2,560, conv 4, window 2,048, tied embeddings;
+                fp32 params, bf16 compute), depth cut 26 -> 8 ((rec, rec,
+                local) x 2 + the (rec, rec) tail), seeded weights on the
+                card, the serve CLI's tuner, its 24 FFN matrices pruned to
+                5 % and planned; the engine's decode step against the dense
+                one on the same pruned weights (<= 1e-4 and the same argmax
+                in float32; in bf16 each FFN product <= 3e-2, and the
+                logits <= 3e-2 where a 1e-5 nudge of the FFN outputs moves
+                them less than that) with the device's busy share of one
+                step; B1 at ``w_up`` (7,680 x 2,560) and ``w_down``
+                (2,560 x 7,680) against its plain version and float64,
+                twice (bit for bit), timed beside its bound and the
+                library; ``BatchedServer`` with 2 and with 4 slots on 16
+                requests of 4-16 prompt tokens, 32 new tokens each, each
+                tick timed: B1 launches must equal the engine's SpMVs
+                (ticks x slots x 24). (b) ``xlstm-1.3b`` as published (d
+                2,048, 4 heads, m 4,096, vocabulary 50,304, chunk 64),
+                depth cut 48 -> 16 ((7 mLSTM + 1 sLSTM) x 2), served dense
+                over 2 slots (8 requests x 16 new tokens; no kernel: its
+                blocks have no FFN for the engine), with its state bytes
+                per slot. (c) In float32 compute: prefill + one decode step
+                against ``forward`` for both models, block by block and
+                whole (allclose 5e-3; the whole model asserted where a 1e-6
+                nudge of its embeddings moves its logits less than that),
+                and
+                one RG-LRU and one mLSTM block over 256 steps (the doubling
+                scan; four chunks) against the block stepped through its
+                decode path and against a float64 sequential recurrence
+                (scaled 2e-3). Then the serve CLI's LM mode for both archs
+                in-process (reduced; recurrentgemma with ``--lm-sparse``).
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-13 (each path of phases
-11-13 on its own) and read just after each:
+Launch counters are set to 0 just before phases 4-14 (each path of phases
+11-14 on its own) and read just after each:
 a kernel of the path that was launched no time fails the run. Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
-CSR kernel's entry also carries its numbers at the LM's FFN shapes and at an
-expert slice of the MoE), the
+CSR kernel's entry also carries its numbers at the LM's FFN shapes, at an
+expert slice of the MoE and at recurrentgemma's FFN shapes), the
 ``nvidia-smi`` name/power-limit line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the exit code
 is not 0; without a CUDA device the script exits at once with code 2 and
@@ -386,12 +419,31 @@ from repro_torch.ml import accuracy_score, r2_score, train_test_split  # noqa: E
 from repro_torch.ml.model_zoo import CLASSIFIER_ZOO, REGRESSOR_ZOO  # noqa: E402
 from repro_torch.ml.model_zoo import build as build_estimator  # noqa: E402
 from repro_torch.launch import solve as launch_solve  # noqa: E402
-from repro_torch.models import decode_step, init_cache, init_params, model_specs, prefill  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    model_specs,
+    param_count,
+    prefill,
+)
 from repro_torch.models.layers import attention, mlp  # noqa: E402
-from repro_torch.models.model import _logits  # noqa: E402
+from repro_torch.models.model import _embed, _logits, apply_block  # noqa: E402
 from repro_torch.models.moe import _capacity as moe_capacity  # noqa: E402
 from repro_torch.models.moe import select_dispatch_format  # noqa: E402
-from repro_torch.models.param import tree_map  # noqa: E402
+from repro_torch.models.param import torch_dtype, tree_map  # noqa: E402
+from repro_torch.models.recurrent import (  # noqa: E402
+    _mlstm_core,
+    _rglru_in,
+    linear_scan,
+    mlstm_block,
+    mlstm_cache_spec,
+    mlstm_specs,
+    rglru,
+    rglru_cache_spec,
+    rglru_specs,
+)
 from repro_torch.models.sparse_linear import SparseInferenceEngine, prune_model_ffns  # noqa: E402
 from repro_torch.obs import FleetSync, SloTracker  # noqa: E402
 from repro_torch.obs.slo import SLO_CLASSES  # noqa: E402
@@ -546,11 +598,27 @@ ZOO_TRIALS, ZOO_REG_SAMPLES, ZOO_REG_SPLIT = 3, 300, (200, 1000)
 # 10,944 in layer 0; bf16 params, float32 router) with the depth cut to 2
 # layers; every FFN matrix and expert slice pruned to 5 % (3 + 195 matrices)
 MOE_ARCH, MOE_LAYERS, MOE_DENSITY = "deepseek-moe-16b", 2, 0.05
-MOE_SLOTS, MOE_REQUESTS, MOE_NEW_TOKENS, MOE_MAX_LEN = (2, 4), 32, 32, 64
+MOE_SLOTS, MOE_REQUESTS, MOE_NEW_TOKENS, MOE_MAX_LEN = (2, 4), 16, 32, 64
 MOE_CHECK_SLOTS = 4
 MOE_DISPATCH_BATCH = (4, 64)  # (prompts, tokens) of the dispatch-format prefill
 MOE_B1_CHECK = ("head0.mlp.w_up", "head0.mlp.w_down", "g0x0.moe.w_up.0", "g0x0.moe.w_down.0",
                 "g0x0.moe.shared.w_up")
+# recurrent phase: recurrentgemma-2b as published (d 2,560, 10 heads, MQA
+# of head_dim 256, GeGLU d_ff 7,680, vocabulary 256,000, RG-LRU width 2,560,
+# conv 4, window 2,048, tied embeddings; fp32 params, bf16 compute) with the
+# depth cut 26 -> 8: (rec, rec, local) x 2 + the (rec, rec) tail; its 24
+# FFN matrices pruned to 5 % and served through B1. xlstm-1.3b as published
+# (d 2,048, 4 heads, m 4,096, head_dim 1,024, vocabulary 50,304, chunk 64)
+# with the depth cut 48 -> 16: (7 mLSTM + 1 sLSTM) x 2, served dense (its
+# blocks have no FFN for the engine, as in the reference)
+RG_ARCH, RG_LAYERS, RG_DENSITY = "recurrentgemma-2b", 8, 0.05
+RG_SLOTS, RG_REQUESTS, RG_NEW_TOKENS, RG_MAX_LEN = (2, 4), 16, 32, 64
+RG_CHECK_SLOTS = 4
+RG_B1_CHECK = ("g0x0.mlp.w_up", "g0x0.mlp.w_down")
+XL_ARCH, XL_LAYERS = "xlstm-1.3b", 16
+XL_SLOTS, XL_REQUESTS, XL_NEW_TOKENS, XL_MAX_LEN = 2, 8, 16, 64
+SCAN_T = 256  # RG-LRU's doubling scan and four mLSTM chunks against a recurrence
+TEACHER_TOL, SCAN_TOL = 5e-3, 2e-3  # the reference tests' bounds (test_models.py)
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -2668,19 +2736,21 @@ def moe_dispatch_runs(pruned, cfg) -> dict:
             "select_dispatch_format": select_dispatch_format(tpe)}
 
 
-def serve_moe(pruned, cfg, engine, slots: int) -> tuple[dict, dict]:
-    """``MOE_REQUESTS`` requests through ``BatchedServer`` over ``slots``
-    slots with the engine; every tick timed on the host clock. B1 must be
-    the only kernel, launched once per slot per registered matrix per tick:
-    the engine's SpMV count."""
-    server = BatchedServer(pruned, cfg, ServeConfig(batch_slots=slots, max_len=MOE_MAX_LEN,
-                                                    max_new_tokens=MOE_NEW_TOKENS),
+def serve_timed(pruned, cfg, engine, slots: int, n_requests: int, new_tokens: int,
+                max_len: int, seed: int, what: str) -> tuple[dict, dict]:
+    """``n_requests`` requests of 4-16 prompt tokens (numpy, ``seed``) through
+    ``BatchedServer`` over ``slots`` slots, ``new_tokens`` each, every tick
+    timed on the host clock. With ``engine``, B1 must be the only kernel,
+    launched once per slot per registered matrix per tick: the engine's SpMV
+    count; without one (dense serving) no kernel may launch."""
+    server = BatchedServer(pruned, cfg, ServeConfig(batch_slots=slots, max_len=max_len,
+                                                    max_new_tokens=new_tokens),
                            engine=engine)
-    rng = np.random.default_rng(SEED + slots)
-    reqs = [Request(rid=i, max_new_tokens=MOE_NEW_TOKENS, slo="latency-critical",
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, max_new_tokens=new_tokens, slo="latency-critical",
                     prompt=rng.integers(0, cfg.vocab_size,
                                         size=int(rng.integers(4, 17))).tolist())
-            for i in range(MOE_REQUESTS)]
+            for i in range(n_requests)]
     ticks, tick = [], server._decode_tick
 
     def timed_tick():
@@ -2689,7 +2759,7 @@ def serve_moe(pruned, cfg, engine, slots: int) -> tuple[dict, dict]:
         ticks.append(time.perf_counter() - t0)
 
     server._decode_tick = timed_tick
-    matmuls = engine.stats.spmv_matmuls
+    matmuls = engine.stats.spmv_matmuls if engine is not None else 0
     reset_launches()
     t0 = time.perf_counter()
     server.run(reqs)
@@ -2697,7 +2767,9 @@ def serve_moe(pruned, cfg, engine, slots: int) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     launches = read_launches()
     n_tokens = sum(len(r.generated) for r in reqs)
-    spmvs = (engine.stats.spmv_matmuls - matmuls) * slots  # one SpMV per slot per call
+    # one SpMV per slot per engine call
+    spmvs = (engine.stats.spmv_matmuls - matmuls) * slots if engine is not None else 0
+    layers = engine.stats.spmv_layers if engine is not None else 0
     tk = 1e3 * np.asarray(ticks)
     row = {"slots": slots, "requests": len(reqs), "ticks": server.ticks, "wall_s": wall,
            "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
@@ -2709,17 +2781,17 @@ def serve_moe(pruned, cfg, engine, slots: int) -> tuple[dict, dict]:
            "engine_spmvs": spmvs, "b1_launches": launches["csr"],
            "b1_launches_per_tick": launches["csr"] / max(server.ticks, 1)}
     bad = []
-    if not all(len(r.generated) == MOE_NEW_TOKENS and r.done for r in reqs):
+    if not all(len(r.generated) == new_tokens and r.done for r in reqs):
         bad.append("a request did not get its tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
         bad.append("a token outside the vocabulary")
-    if launches["csr"] != spmvs or spmvs != server.ticks * slots * engine.stats.spmv_layers:
+    if launches["csr"] != spmvs or spmvs != server.ticks * slots * layers:
         bad.append(f"B1 launches {launches['csr']} != the engine's {spmvs} SpMVs "
-                   f"({server.ticks} ticks x {slots} slots x {engine.stats.spmv_layers})")
+                   f"({server.ticks} ticks x {slots} slots x {layers})")
     if sum(launches.values()) != launches["csr"]:
-        bad.append(f"a kernel other than B1 ran in the MoE decode path: {launches}")
+        bad.append(f"a kernel other than B1 ran in the {what} decode path: {launches}")
     if bad:
-        raise AssertionError(f"moe serve: {bad}: {row}")
+        raise AssertionError(f"{what} serve: {bad}: {row}")
     return row, launches
 
 
@@ -2774,7 +2846,8 @@ def run_moe_phase() -> tuple[dict, dict]:
 
     serve, launches = [], {k: 0 for k in WRAPPERS}
     for slots in MOE_SLOTS:
-        row, got = serve_moe(pruned, cfg, engine, slots)
+        row, got = serve_timed(pruned, cfg, engine, slots, MOE_REQUESTS, MOE_NEW_TOKENS,
+                               MOE_MAX_LEN, SEED + slots, "MoE")
         serve.append(row)
         for k in launches:
             launches[k] += got[k]
@@ -2810,6 +2883,404 @@ def run_moe_phase() -> tuple[dict, dict]:
         "expert_bytes_on_device": expert_bytes, "times": times, "checks": checks,
         "serve": serve, "cli": cli, "engine": engine.summary(),
         "session": session.stats.as_dict(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return payload, launches
+
+
+# --------------------------------------------------------------- recurrent
+def rec_configs():
+    """``recurrentgemma-2b`` and ``xlstm-1.3b`` at their published widths
+    with the depth cut to ``RG_LAYERS`` (two groups of (rec, rec, local) and
+    the (rec, rec) tail) and ``XL_LAYERS`` (two groups of 7 mLSTM + 1
+    sLSTM)."""
+    return (get_config(RG_ARCH).replace(n_layers=RG_LAYERS),
+            get_config(XL_ARCH).replace(n_layers=XL_LAYERS))
+
+
+def ffn_leaf(params, name: str) -> torch.Tensor:
+    """The pruned FFN weight leaf that ``{block}.mlp.{w}`` names
+    (``g{p}x{g}``, ``tail{i}``, ``head{i}``)."""
+    block, _, w = name.split(".")
+    if block.startswith("g"):
+        p, g = (int(v) for v in block[1:].split("x"))
+        return params["groups"][p]["mlp"][w][g]
+    part = "tail" if block.startswith("tail") else "head"
+    return params[part][int(block[len(part):])]["mlp"][w]
+
+
+class PerturbedHandle:
+    """The dense FFN contractions (float32 sums of the compute-dtype
+    operands) with every output scaled by (1 + eps z) before its rounding
+    to the compute dtype, z ~ N(0, 1) from a seeded generator: how far a
+    relative change of eps in the FFN outputs moves the logits (the model's
+    own sensitivity)."""
+
+    def __init__(self, eps: float, seed: int):
+        self.eps = eps
+        self.gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def matmul(self, name, x, w):
+        y = torch.einsum("...d,df->...f", x.float(), w.float())
+        z = torch.randn(y.shape, generator=self.gen, device=y.device)
+        return (y * (1.0 + self.eps * z)).to(x.dtype)
+
+
+def rg_logits_check(pruned, cfg, engine) -> tuple[dict, dict]:
+    """One decode step of ``RG_CHECK_SLOTS`` tokens with the engine (every
+    FFN matrix a planned B1 SpMV per token) against the same step without
+    it on the same pruned weights. float32 compute (TF32 off): scaled
+    logits error <= 1e-4 and the same argmax. bf16 (the config's): every
+    one of the 24 FFN products of the step, the engine's route against the
+    dense bf16 contraction on the same token vectors, <= 3e-2; and the
+    logits against the dense path's <= 3e-2 where the model is conditioned
+    for it: the distance a 1e-5 relative change of the FFN outputs alone
+    makes to the dense logits (``sensitivity``, below bf16's rounding) must
+    itself be within the bound, else the logits bound nothing and are
+    reported (at this model's random initialisation a one-ulp bf16 change
+    can move its near one-hot local attention). With the device's busy
+    share of one engine step. Returns (checks, the bf16 step's token vectors at
+    RG_B1_CHECK)."""
+    rng = np.random.default_rng(SEED + 71)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (RG_CHECK_SLOTS, 8)),
+                             dtype=torch.int32, device=DEVICE)
+    names = tuple(engine._by_name)
+    out, seen = {}, {}
+    for compute, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        c = cfg.replace(compute_dtype=compute)
+        logits, cache, _ = prefill(pruned, c, init_cache(c, RG_CHECK_SLOTS, RG_MAX_LEN, DEVICE),
+                                   tokens=tokens)
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        pos = torch.full((RG_CHECK_SLOTS, 1), 8, dtype=torch.int32, device=DEVICE)
+        dense, _ = decode_step(pruned, c, cache, nxt, pos)
+        handle = CaptureHandle(engine.bind("latency"), names)
+        before = engine.stats.spmv_matmuls
+        sparse, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True, engine=handle)
+        matmuls = engine.stats.spmv_matmuls - before
+        d, sp = dense.cpu().numpy(), sparse.cpu().numpy()
+        row = {"err": scaled_err(sp, d), "tol": tol,
+               "argmax_equal": bool((d.argmax(-1) == sp.argmax(-1)).all()),
+               "max_abs_logit": float(np.abs(d).max()), "shape": list(sp.shape),
+               "engine_matmuls": matmuls}
+        ok = (np.isfinite(sp).all() and sp.shape == (RG_CHECK_SLOTS, 1, cfg.vocab_size)
+              and matmuls == engine.stats.spmv_layers)
+        if compute == "float32":
+            ok = ok and row["err"] <= tol and row["argmax_equal"]
+        else:
+            cd = torch_dtype(compute)
+            bound = engine.bind("latency")
+            ffn = {}
+            for n in names:
+                x, w = handle.seen[n].to(cd), ffn_leaf(pruned, n).to(cd)
+                ffn[n] = scaled_err(bound.matmul(n, x, w).float().cpu().numpy(),
+                                    torch.einsum("td,df->tf", x, w).float().cpu().numpy())
+            row["ffn_err_max"] = max(ffn.values())
+            row["ffn_err_by_matrix"] = ffn
+            perturbed, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True,
+                                       engine=PerturbedHandle(1e-5, SEED + 72))
+            row["sensitivity"] = {"eps": 1e-5,
+                                  "err": scaled_err(perturbed.cpu().numpy(), d)}
+            row["logits_asserted"] = row["sensitivity"]["err"] <= tol
+            ok = (ok and row["ffn_err_max"] <= tol
+                  and (row["err"] <= tol or not row["logits_asserted"]))
+        out[compute] = row
+        if not ok:
+            raise AssertionError(f"recurrentgemma sparse decode differs from dense in "
+                                 f"{compute}: {row}")
+        if compute == cfg.compute_dtype:
+            seen = {n: handle.seen[n] for n in RG_B1_CHECK}
+            # timing launches, not the counted main path
+            row["profile"] = profile_tick(lambda: decode_step(
+                pruned, c, cache, nxt, pos, unroll_layers=True, engine=engine.bind("latency")))
+    return out, seen
+
+
+def model_blocks(params, cache, cfg):
+    """(name, kind, block params, block cache) in ``_run_blocks``' order."""
+    for i, kind in enumerate(cfg.first_blocks):
+        yield f"head{i}", kind, params["head"][i], cache["head"][i]
+    for pi, kind in enumerate(cfg.pattern if cfg.n_groups else ()):
+        for g in range(cfg.n_groups):
+            yield (f"g{pi}x{g}", kind, tree_map(lambda a: a[g], params["groups"][pi]),
+                   tree_map(lambda a: a[g], cache["groups"][pi]))
+    for i, kind in enumerate(cfg.tail_blocks):
+        yield f"tail{i}", kind, params["tail"][i], cache["tail"][i]
+
+
+def teacher_forcing(params, cfg, T: int = 12) -> dict:
+    """The reference's decode-consistency check at full width in float32
+    compute. Per block: each block's prefill over T tokens and one decode
+    step against the block over T + 1 at the same positions, on the input
+    ``forward`` gives that block (allclose, rtol = atol = 5e-3, the
+    reference test's). Whole model: prefill + decode against ``forward``,
+    asserted where the model is conditioned for it: the distance a relative
+    change of 1e-6 in the embeddings alone makes to ``forward``'s logits
+    (``sensitivity``) must itself be within 5e-3, else the whole-model
+    logits bound nothing about the two paths and are reported."""
+    c = cfg.replace(compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 81)
+    tokens = torch.as_tensor(rng.integers(0, c.vocab_size, (1, T + 1)), dtype=torch.int32,
+                             device=DEVICE)
+    pos = torch.arange(T + 1, dtype=torch.int32, device=DEVICE)[None]
+    x = _embed(params, c, tokens)
+    blocks, worst = {}, 0.0
+    for name, kind, p, cache in model_blocks(params, init_cache(c, 1, RG_MAX_LEN, DEVICE), c):
+        full, _, _ = apply_block(kind, p, x, c, positions=pos, cache=None)
+        pre, cache, _ = apply_block(kind, p, x[:, :T], c, positions=pos[:, :T], cache=cache)
+        step, _, _ = apply_block(kind, p, x[:, T:], c, positions=pos[:, T:], cache=cache)
+        got = torch.cat([pre, step], dim=1).cpu().numpy()
+        want = full.cpu().numpy()
+        blocks[name] = {"kind": kind, "scaled_err": scaled_err(got, want),
+                        "ok": bool(np.allclose(got, want, rtol=TEACHER_TOL, atol=TEACHER_TOL))}
+        worst = max(worst, blocks[name]["scaled_err"])
+        if not (np.isfinite(got).all() and blocks[name]["ok"]):
+            raise AssertionError(f"{cfg.name}: block {name} prefill + decode != forward: "
+                                 f"{blocks[name]}")
+        x = full
+    full, _ = forward(params, c, tokens=tokens)
+    pre, cache, _ = prefill(params, c, init_cache(c, 1, RG_MAX_LEN, DEVICE), tokens=tokens[:, :T])
+    step, _ = decode_step(params, c, cache, tokens[:, T:], pos[:, T:])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 82)
+    emb = _embed(params, c, tokens)
+    nudged, _ = forward(params, c, embeds=emb * (1.0 + 1e-6 * torch.randn(
+        emb.shape, generator=gen, device=DEVICE)))
+    full = full.cpu().numpy()
+    model = {}
+    for key, got, want in (("decode", step[:, 0].cpu().numpy(), full[:, T]),
+                           ("prefill_last", pre[:, -1].cpu().numpy(), full[:, T - 1])):
+        model[key] = {"max_abs_diff": float(np.abs(got - want).max()),
+                      "scaled_err": scaled_err(got, want),
+                      "within_5e-3": bool(np.allclose(got, want, rtol=TEACHER_TOL,
+                                                      atol=TEACHER_TOL))}
+    model["sensitivity"] = {"eps": 1e-6, "max_abs_diff": float(np.abs(
+        nudged.cpu().numpy() - full).max()), "scaled_err": scaled_err(nudged.cpu().numpy(), full)}
+    model["asserted"] = model["sensitivity"]["max_abs_diff"] <= TEACHER_TOL
+    if model["asserted"] and not (model["decode"]["within_5e-3"]
+                                  and model["prefill_last"]["within_5e-3"]):
+        raise AssertionError(f"{cfg.name}: prefill + decode != forward: {model}")
+    return {"T": T, "blocks_worst_scaled_err": worst, "blocks": blocks, "model": model}
+
+
+def scan_checks(rg_cfg, xl_cfg) -> dict:
+    """One RG-LRU and one mLSTM block at full width over ``SCAN_T`` steps in
+    float32 compute: the parallel form (RG-LRU's doubling scan; mLSTM's
+    chunkwise form, SCAN_T / 64 chunks) against the block stepped one token
+    at a time through its decode path, and the recurrence alone against a
+    float64 sequential loop (the reference test's ``_mlstm_sequential``;
+    h = a h + b on the block's own gates). Scaled error <= SCAN_TOL."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    out = {}
+
+    def stepped(block, p, x, cfg, cache):
+        ys = []
+        for t in range(x.shape[1]):
+            y, cache = block(p, x[:, t:t + 1], cfg, cache=cache)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+
+    c = rg_cfg.replace(compute_dtype="float32")
+    p = init_params(rglru_specs(c), gen, "float32", device=DEVICE)
+    x = 0.3 * torch.randn((1, SCAN_T, c.d_model), generator=gen, device=DEVICE)
+    y_scan, _ = rglru(p, x, c)
+    y_step = stepped(rglru, p, x, c, init_params(rglru_cache_spec(c, 1), None, "float32", DEVICE))
+    a, b, _, _ = _rglru_in(p, x, c, None)
+    h = linear_scan(a, b)
+    h64, seq = torch.zeros_like(b[:, 0], dtype=torch.float64), []
+    for t in range(SCAN_T):
+        h64 = a[:, t].double() * h64 + b[:, t].double()
+        seq.append(h64)
+    out["rglru"] = {"width": c.rnn_dim, "T": SCAN_T,
+                    "scan_vs_steps": scaled_err(y_scan.cpu().numpy(), y_step.cpu().numpy()),
+                    "scan_vs_float64": scaled_err(h.cpu().numpy(),
+                                                  torch.stack(seq, 1).cpu().numpy()),
+                    "min_prod_a": float(torch.prod(a.double(), dim=1).min())}
+    del p
+
+    c = xl_cfg.replace(compute_dtype="float32")
+    p = init_params(mlstm_specs(c), gen, "float32", device=DEVICE)
+    x = torch.randn((1, SCAN_T, c.d_model), generator=gen, device=DEVICE)
+    y_chunk, _ = mlstm_block(p, x, c)
+    y_step = stepped(mlstm_block, p, x, c,
+                     init_params(mlstm_cache_spec(c, 1), None, "float32", DEVICE))
+    H, dh = c.n_heads, 2 * c.d_model // c.n_heads
+    q, k, v = (torch.randn((1, SCAN_T, H, dh), generator=gen, device=DEVICE) for _ in range(3))
+    i_g = 0.2 + 0.8 * torch.rand((1, SCAN_T, H), generator=gen, device=DEVICE)
+    f_g = 0.8 + 0.199 * torch.rand((1, SCAN_T, H), generator=gen, device=DEVICE)
+    got, _ = _mlstm_core(q, k, v, i_g, f_g, c.mlstm_chunk)
+    q64, k64, v64, i64, f64 = (t.double() for t in (q, k, v, i_g, f_g))
+    C = torch.zeros((1, H, dh, dh), dtype=torch.float64, device=DEVICE)
+    n = torch.zeros((1, H, dh), dtype=torch.float64, device=DEVICE)
+    seq = []
+    for t in range(SCAN_T):
+        ki = k64[:, t] * i64[:, t, :, None]
+        C = f64[:, t, :, None, None] * C + torch.einsum("bhk,bhv->bhkv", ki, v64[:, t])
+        n = f64[:, t, :, None] * n + ki
+        qt = q64[:, t] * dh ** -0.5
+        den = torch.clamp(torch.einsum("bhk,bhk->bh", qt, n).abs()[..., None], min=1.0)
+        seq.append(torch.einsum("bhk,bhkv->bhv", qt, C) / den)
+    out["mlstm"] = {"heads": H, "head_dim": dh, "T": SCAN_T, "chunks": -(-SCAN_T // c.mlstm_chunk),
+                    "chunked_vs_steps": scaled_err(y_chunk.cpu().numpy(), y_step.cpu().numpy()),
+                    "chunked_vs_float64": scaled_err(got.cpu().numpy(),
+                                                     torch.stack(seq, 1).cpu().numpy())}
+    for name, row in out.items():
+        errs = [v for k, v in row.items() if k.endswith(("_steps", "_float64"))]
+        if not all(np.isfinite(e) and e <= SCAN_TOL for e in errs):
+            raise AssertionError(f"{name} at T = {SCAN_T} disagrees with its recurrence: {row}")
+    out["tol"] = SCAN_TOL
+    return out
+
+
+def state_bytes(cfg, max_len: int) -> dict:
+    """Bytes of one slot's serving cache, by leaf (group leaves hold every
+    group's)."""
+    cache = init_cache(cfg, 1, max_len, DEVICE)
+    by_leaf: dict[str, int] = {}
+
+    for part in ("head", "groups", "tail"):
+        for i, c in enumerate(cache[part]):
+            for key, t in c.items():
+                by_leaf[f"{part}{i}.{key}"] = t.numel() * t.element_size()
+    return {"per_slot": sum(by_leaf.values()), "by_leaf": by_leaf}
+
+
+def run_recurrent_phase() -> tuple[dict, dict]:
+    """The recurrent blocks at full width through the public entry points.
+    (a) ``recurrentgemma-2b`` (depth ``RG_LAYERS``): params on the card from
+    a seeded generator (fp32), the CLI's tuner, the 24 GeGLU matrices of the
+    ``rec`` and ``local`` blocks pruned to ``RG_DENSITY`` into a
+    ``SparseInferenceEngine`` and planned; sparse vs dense logits and the
+    busy share of one engine step; B1 at ``w_up`` / ``w_down`` against its
+    plain version and float64, timed beside its bound and the library;
+    ``BatchedServer`` over each of ``RG_SLOTS`` (the counted main path: B1
+    launches = ticks x slots x 24). (b) ``xlstm-1.3b`` (depth ``XL_LAYERS``),
+    served dense over ``XL_SLOTS`` (no FFN for the engine: no kernel). (c)
+    Teacher forcing for both, and the T = ``SCAN_T`` scan checks, in fp32
+    compute. Then the serve CLI's LM mode for both archs (reduced, as the
+    CLI runs). Returns (payload, launches of the served runs and the CLI)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rg_cfg, xl_cfg = rec_configs()
+    times, launches = {}, {k: 0 for k in WRAPPERS}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # ---- (a) recurrentgemma-2b, sparse through B1
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(model_specs(rg_cfg), gen, rg_cfg.param_dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    times["rg_init_params_s"] = time.perf_counter() - t0
+    rg_params = param_count(params)
+    t0 = time.perf_counter()
+    tuner = launch_serve.build_tuner(scale=0.0008, names=MATRIX_NAMES[:4], n_extra=0,
+                                     fit_overhead=False, device=DEVICE)
+    times["tuner_s"] = time.perf_counter() - t0
+    session = AutoSpmvSession(tuner)
+    engine = SparseInferenceEngine(session)
+    t0 = time.perf_counter()
+    pruned = prune_model_ffns(params, rg_cfg, engine, density=RG_DENSITY)
+    torch.cuda.synchronize()
+    times["rg_prune_s"] = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    n_planned = engine.plan_all("latency")
+    torch.cuda.synchronize()
+    times["rg_plan_all_s"] = time.perf_counter() - t0
+    want = 3 * RG_LAYERS  # every block of recurrentgemma carries a GeGLU FFN
+    if not (engine.stats.registered == engine.stats.spmv_layers == n_planned == want):
+        raise AssertionError(f"expected {want} SpMV-eligible FFN matrices: {engine.stats}")
+    entries = sum(int(np.prod(engine.layer(n).weight_t.shape)) for n in engine._by_name)
+    nnz = {n: int((engine.layer(n).weight_t != 0).sum()) for n in RG_B1_CHECK}
+
+    t0 = time.perf_counter()
+    checks, seen = rg_logits_check(pruned, rg_cfg, engine)
+    checks["b1"] = [row for row, _ in check_b1_served(engine, seen, RG_B1_CHECK)]
+    times["rg_check_s"] = time.perf_counter() - t0
+    serve = []
+    for slots in RG_SLOTS:
+        row, got = serve_timed(pruned, rg_cfg, engine, slots, RG_REQUESTS, RG_NEW_TOKENS,
+                               RG_MAX_LEN, SEED + 100 + slots, "recurrentgemma")
+        serve.append(row)
+        add(got)
+    t0 = time.perf_counter()
+    scans = scan_checks(rg_cfg, xl_cfg)
+    teacher = {RG_ARCH: teacher_forcing(pruned, rg_cfg)}
+    times["checks_s"] = time.perf_counter() - t0
+    rg_state = state_bytes(rg_cfg, RG_MAX_LEN)
+    rg_engine, rg_session = engine.summary(), session.stats.as_dict()
+    del pruned, engine, session
+    torch.cuda.empty_cache()
+
+    # ---- (b) xlstm-1.3b, dense
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    params = init_params(model_specs(xl_cfg), gen, xl_cfg.param_dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    times["xl_init_params_s"] = time.perf_counter() - t0
+    xl_params = param_count(params)
+    xl_engine = SparseInferenceEngine(AutoSpmvSession(tuner))
+    prune_model_ffns(params, xl_cfg, xl_engine, density=RG_DENSITY)
+    if xl_engine.stats.registered:
+        raise AssertionError(f"xLSTM blocks have no FFN, yet: {xl_engine.stats}")
+    row, got = serve_timed(params, xl_cfg, None, XL_SLOTS, XL_REQUESTS, XL_NEW_TOKENS,
+                           XL_MAX_LEN, SEED + 200, "xlstm")
+    add(got)
+    xl_serve = row
+    t0 = time.perf_counter()
+    teacher[XL_ARCH] = teacher_forcing(params, xl_cfg)
+    times["xl_teacher_s"] = time.perf_counter() - t0
+    xl_state = state_bytes(xl_cfg, XL_MAX_LEN)
+    c_bytes = xl_state["by_leaf"]["groups0.C"] // xl_cfg.n_groups
+    if c_bytes != 16 * 2 ** 20:
+        raise AssertionError(f"an mLSTM block's C is {c_bytes} bytes per slot, not 16 MiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- the serve CLI's LM mode for both archs, in-process, reduced
+    cli = {}
+    for arch, flags in ((RG_ARCH, ["--lm-sparse"]), (XL_ARCH, [])):
+        reset_launches()
+        t0 = time.perf_counter()
+        done = launch_serve.main(["--arch", arch, *flags, "--requests", "2", "--slots", "2",
+                                  "--max-new-tokens", "3", "--max-len", "64"])
+        torch.cuda.synchronize()
+        got = read_launches()
+        red = get_config(arch, reduced_config=True)
+        per_token = 3 * red.n_layers if flags else 0
+        cli[arch] = {"wall_s": time.perf_counter() - t0, "generated": [r.generated for r in done],
+                     "b1_launches": got["csr"], "matrices": per_token}
+        if not (len(done) == 2 and all(len(r.generated) == 3 for r in done)
+                and sum(got.values()) == got["csr"]
+                and (got["csr"] > 0 and got["csr"] % (per_token * 2) == 0 if flags
+                     else got["csr"] == 0)):
+            raise AssertionError(f"{arch} CLI: {cli[arch]}")
+        add(got)
+
+    def described(cfg, n_params, cut):
+        return {"name": cfg.name, "n_layers": cfg.n_layers,
+                "blocks": list(cfg.pattern) * cfg.n_groups + list(cfg.tail_blocks),
+                "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                "rnn_width": cfg.rnn_dim, "window": cfg.window, "mlstm_chunk": cfg.mlstm_chunk,
+                "tied": cfg.tie_embeddings, "params": n_params, "param_dtype": cfg.param_dtype,
+                "compute": cfg.compute_dtype, "cut": cut}
+
+    payload = {
+        "config": {
+            RG_ARCH: described(rg_cfg, rg_params, f"depth {get_config(RG_ARCH).n_layers} -> "
+                               f"{RG_LAYERS}: (rec, rec, local) x 2 + (rec, rec)"),
+            XL_ARCH: described(xl_cfg, xl_params, f"depth {get_config(XL_ARCH).n_layers} -> "
+                               f"{XL_LAYERS}: (7 mLSTM + 1 sLSTM) x 2")},
+        "reduced": [f"{RG_ARCH} depth {get_config(RG_ARCH).n_layers} -> {RG_LAYERS} layers",
+                    f"{XL_ARCH} depth {get_config(XL_ARCH).n_layers} -> {XL_LAYERS} layers",
+                    "widths as published",
+                    "checks (c) and the fp32 logits check override compute_dtype to float32"],
+        "density": RG_DENSITY, "matrices": want, "pruned_entries": entries, "b1_nnz": nnz,
+        "times": times, "checks": checks, "serve": serve, "xlstm_serve": xl_serve,
+        "teacher_forcing": teacher, "scans": scans, "cli": cli,
+        "state_bytes_per_slot": {RG_ARCH: rg_state, XL_ARCH: xl_state},
+        "engine": rg_engine, "session": rg_session,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     return payload, launches
 
@@ -3649,6 +4120,17 @@ def main() -> None:
                                        if k != "launch"}
     torch.cuda.empty_cache()
     emit("moe", seconds=time.perf_counter() - t0, launches=got, **moe_run)
+
+    # ---- recurrent: recurrentgemma-2b through B1, xlstm-1.3b dense --------
+    t0 = time.perf_counter()
+    rec_run, got = run_recurrent_phase()
+    for k in launches:
+        launches[k] += got[k]
+    # B1 at recurrentgemma's FFN shapes (7,680 x 2,560 and 2,560 x 7,680)
+    for key, row in zip(("at_rg_ffn", "at_rg_ffn_down"), rec_run["checks"]["b1"]):
+        checked["csr"][key] = {k: v for k, v in row.items() if k != "launch"}
+    torch.cuda.empty_cache()
+    emit("recurrent", seconds=time.perf_counter() - t0, launches=got, **rec_run)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

@@ -1,7 +1,6 @@
 """Config registry: ``--arch <id>`` resolution for every assigned
 architecture (+ the paper's own SpMV matrix suite via
-repro_torch.sparse.generate). The workload-shape set of the reference
-(``shapes.py``) waits for the dry-run slice of the port.
+repro_torch.sparse.generate) and the workload-shape set (``shapes.py``).
 """
 
 from __future__ import annotations
@@ -9,6 +8,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.shapes import SHAPE_NAMES, SHAPES, WorkloadShape, applicable, cells_for
 
 # arch id -> module name
 _ARCH_MODULES = {
@@ -41,6 +41,11 @@ def all_configs(*, reduced_config: bool = False) -> dict[str, ModelConfig]:
 __all__ = [
     "ModelConfig",
     "reduced",
+    "WorkloadShape",
+    "SHAPES",
+    "SHAPE_NAMES",
+    "applicable",
+    "cells_for",
     "ARCH_IDS",
     "get_config",
     "all_configs",

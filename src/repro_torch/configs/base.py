@@ -3,8 +3,8 @@
 Every assigned architecture gets one module in this package defining
 ``CONFIG`` (the exact published configuration) and ``REDUCED`` (a
 same-family shrink used by CPU smoke tests). Pure Python, carried over
-from the reference package unchanged. The workload-shape set
-(``repro.configs.shapes``) is not ported yet.
+from the reference package unchanged. Workload shapes (the assigned
+input-shape set) live in ``shapes.py``.
 """
 
 from __future__ import annotations

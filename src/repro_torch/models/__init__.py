@@ -1,8 +1,8 @@
 """The LM stack of the port: configs' models as plain functions over
 parameter trees of tensors (``param.py``, ``layers.py``, ``model.py``) and
 the sparse inference engine (``sparse_linear.py``). Block kinds ``attn``,
-``local`` and ``moe`` (``moe.py``); the recurrent kinds wait for a later
-slice."""
+``local``, ``moe`` (``moe.py``) and the recurrent ``rec``, ``mlstm`` and
+``slstm`` (``recurrent.py``)."""
 
 from repro_torch.models.model import (
     block_specs,

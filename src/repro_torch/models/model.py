@@ -2,10 +2,10 @@
 
 Layer layout = optional ``first_blocks`` + ``pattern`` repeated
 ``n_groups`` times (params stacked on a leading group axis, walked by a
-Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds
-``"attn"``, ``"local"`` and ``"moe"`` (attention + the MoE FFN of
-``models/moe.py``) are ported; ``"rec"``, ``"mlstm"`` and ``"slstm"`` raise
-``NotImplementedError`` (the recurrent blocks, ROADMAP queue A, item 5(b)).
+Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds:
+``"attn"``, ``"local"`` (windowed attention with a ring cache), ``"moe"``
+(attention + the MoE FFN of ``models/moe.py``), ``"rec"`` (RG-LRU + FFN),
+``"mlstm"`` and ``"slstm"`` (the xLSTM blocks of ``models/recurrent.py``).
 
 Three entry points: ``forward`` (full sequence, no cache), ``prefill``
 (fills the serving cache over a full prompt) and ``decode_step`` (one
@@ -35,23 +35,20 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.param import ParamSpec, init_params, stack_specs, torch_dtype, tree_map
-
-# block kind -> (what it needs, its ROADMAP.md queue A item)
-_LATER = {
-    "rec": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
-    "mlstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
-    "slstm": ("the recurrent blocks (models/recurrent.py)", "5(b)"),
-}
-
-
-def _not_ported(kind: str):
-    if kind in _LATER:
-        needs, item = _LATER[kind]
-        return NotImplementedError(
-            f"block kind {kind!r} needs {needs}, a later slice of the port "
-            f"(ROADMAP.md queue A, item {item}); the reference package serves it"
-        )
-    return ValueError(f"unknown block kind {kind!r}")
+from repro_torch.models.recurrent import (
+    _rglru_in,
+    _rglru_out,
+    linear_scan,
+    mlstm_block,
+    mlstm_cache_spec,
+    mlstm_specs,
+    rglru,
+    rglru_cache_spec,
+    rglru_specs,
+    slstm_block,
+    slstm_cache_spec,
+    slstm_specs,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +72,18 @@ def block_specs(cfg: ModelConfig, kind: str) -> dict:
             "ln2": rmsnorm_spec(d),
             "moe": moe_specs(cfg),
         }
-    raise _not_ported(kind)
+    if kind == "rec":
+        return {
+            "ln1": rmsnorm_spec(d),
+            "rec": rglru_specs(cfg),
+            "ln2": rmsnorm_spec(d),
+            "mlp": mlp_specs(cfg),
+        }
+    if kind == "mlstm":
+        return mlstm_specs(cfg)
+    if kind == "slstm":
+        return slstm_specs(cfg)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -104,7 +112,13 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int):
         spec = attention_cache_spec(cfg, batch, w)
         spec["pos"] = ParamSpec((batch, w), ("batch", None), init="zeros", dtype="int32")
         return spec
-    raise _not_ported(kind)
+    if kind == "rec":
+        return rglru_cache_spec(cfg, batch)
+    if kind == "mlstm":
+        return mlstm_cache_spec(cfg, batch)
+    if kind == "slstm":
+        return slstm_cache_spec(cfg, batch)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -121,8 +135,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """A fresh serving cache on ``device`` (``None`` = the card): attention
-    K/V and ring positions start at zeros."""
+    """A fresh serving cache on ``device`` (``None`` = the card) with its
+    initial values: attention K/V, ring positions and recurrent states at
+    zeros, the sLSTM normaliser ``n`` at ones."""
     return init_params(cache_specs(cfg, batch, max_len), None, "float32", device)
 
 
@@ -167,6 +182,18 @@ def _local_attention(params, x, cfg, *, positions, cache):
     return y, new_cache
 
 
+def _rglru_with_state(params, x, cfg, *, cache):
+    """RG-LRU with prefill over a carried state (T > 1 with a cache): the
+    state folds into the first step as ``a_0 h_0``, and the last step's
+    ``h`` is the new state."""
+    if cache is None or x.shape[1] == 1:
+        return rglru(params, x, cfg, cache=cache)
+    a, bx, gb, new_conv = _rglru_in(params, x, cfg, cache["conv"])
+    bx = torch.cat([bx[:, :1] + a[:, :1] * cache["h"].float()[:, None], bx[:, 1:]], dim=1)
+    h = linear_scan(a, bx)
+    return _rglru_out(params, h, gb, cfg), {"h": h[:, -1], "conv": new_conv}
+
+
 def apply_block(
     kind: str,
     params: dict,
@@ -182,9 +209,15 @@ def apply_block(
 
     ``engine``/``name`` route this block's FFN matmuls through the sparse
     inference engine (models/sparse_linear.py) under ``{name}.mlp.*`` /
-    ``{name}.moe.*`` keys; attention stays dense. A block without experts
-    returns ``None`` for the auxiliaries (the reference's zeros; eager
-    PyTorch would spend two launches per layer on them)."""
+    ``{name}.moe.*`` keys; attention and the recurrences stay dense. A block
+    without experts returns ``None`` for the auxiliaries (the reference's
+    zeros; eager PyTorch would spend two launches per layer on them)."""
+    if kind == "mlstm":
+        x, new_cache = mlstm_block(params, x, cfg, cache=cache)
+        return x, new_cache, None
+    if kind == "slstm":
+        x, new_cache = slstm_block(params, x, cfg, cache=cache)
+        return x, new_cache, None
     if kind in ("attn", "moe"):
         a, new_cache = attention(
             params["attn"], rmsnorm(x, params["ln1"]), cfg,
@@ -194,8 +227,11 @@ def apply_block(
         a, new_cache = _local_attention(
             params["attn"], rmsnorm(x, params["ln1"]), cfg, positions=positions, cache=cache
         )
+    elif kind == "rec":
+        a, new_cache = _rglru_with_state(params["rec"], rmsnorm(x, params["ln1"]), cfg,
+                                         cache=cache)
     else:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     x = x + a
     h = rmsnorm(x, params["ln2"])
     if kind == "moe":

@@ -33,6 +33,7 @@ LM_MODULES = (
     "repro_torch.optim", "repro_torch.optim.compress", "repro_torch.models",
     "repro_torch.models.param", "repro_torch.models.layers", "repro_torch.models.model",
     "repro_torch.models.sparse_linear", "repro_torch.models.moe",
+    "repro_torch.models.recurrent", "repro_torch.configs.shapes",
 )
 # modules of the predictor zoo
 ZOO_MODULES = (
@@ -45,7 +46,7 @@ def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
     assert set(LM_MODULES) <= set(mods) and set(ZOO_MODULES) <= set(mods)
-    assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 11
+    assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 12
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(PKG.parent)!r})\n"
@@ -80,7 +81,7 @@ def test_no_source_file_imports_jax_or_the_reference_package(path):
 # package -> (reference package, its names the port does not export yet,
 # names only the port exports)
 EXPORTS = {
-    "configs": ({"SHAPES", "SHAPE_NAMES", "WorkloadShape", "applicable", "cells_for"}, set()),
+    "configs": (set(), set()),
     "models": ({"abstract_params", "axes_tree"}, {"init_cache", "params_from_numpy"}),
     "optim": ({"AdamWConfig", "apply_adamw", "compress_gradients", "constant",
                "cosine_schedule", "init_error_feedback", "init_opt_state", "linear_warmup"},

@@ -268,32 +268,40 @@ def test_engine_needs_unrolled_layers():
 
 @pytest.mark.parametrize("kind", ["moe", "rec", "mlstm", "slstm"])
 def test_later_block_kinds_raise_not_implemented(kind):
+    """Once stubs, now ported: each kind's specs equal the reference's leaf
+    for leaf (tests/test_torch_moe.py and tests/test_torch_recurrent.py hold
+    the rest); an unknown kind still raises."""
     ref_cfg, cfg = _cfgs("tiny")
-    if kind == "moe":  # ported: the reference's specs (tests/test_torch_moe.py holds the rest)
+    if kind == "moe":
         moe_kw = dict(n_experts=4, top_k=2, d_ff_expert=32, n_shared_experts=1)
         ref_cfg, cfg = ref_cfg.replace(**moe_kw), cfg.replace(**moe_kw)
-        got = {k: v for k, v in block_specs(cfg, kind).items()}
-        want = ref_model.block_specs(ref_cfg, kind)
-        assert got.keys() == want.keys() and set(got["moe"]) == set(want["moe"])
-        for k in ("router", "w_gate", "w_up", "w_down"):
-            assert dataclasses.astuple(got["moe"][k]) == dataclasses.astuple(want["moe"][k])
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            block_specs(cfg, kind)
+    if kind == "rec":
+        ref_cfg, cfg = ref_cfg.replace(rnn_width=32), cfg.replace(rnn_width=32)
+    got, want = block_specs(cfg, kind), ref_model.block_specs(ref_cfg, kind)
+    as_tuples = lambda t: jax.tree.map(  # noqa: E731
+        dataclasses.astuple, t, is_leaf=dataclasses.is_dataclass)
+    assert got.keys() == want.keys() and as_tuples(got) == as_tuples(want)
     with pytest.raises(ValueError, match="unknown block kind"):
         block_specs(cfg, "conv")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-1.3b", "recurrentgemma-2b"])
 def test_configs_with_later_kinds_raise_at_their_specs(arch):
-    if arch == "deepseek-moe-16b":  # ported: the reference's parameter shapes and count
-        cfg = configs.get_config(arch, reduced_config=True)
-        ref_cfg = ref_configs.get_config(arch, reduced_config=True)
-        specs, ref_specs = model_specs(cfg), ref_model.model_specs(ref_cfg)
-        assert jax.tree.map(lambda s: s.shape, specs) == jax.tree.map(
-            lambda s: s.shape, ref_specs, is_leaf=lambda s: isinstance(s, ref_param.ParamSpec))
+    """Once stubs, now ported: the reference's parameter shapes and count."""
+    cfg = configs.get_config(arch, reduced_config=True)
+    ref_cfg = ref_configs.get_config(arch, reduced_config=True)
+    specs, ref_specs = model_specs(cfg), ref_model.model_specs(ref_cfg)
+    assert jax.tree.map(lambda s: s.shape, specs) == jax.tree.map(
+        lambda s: s.shape, ref_specs, is_leaf=lambda s: isinstance(s, ref_param.ParamSpec))
+    assert param_count(specs) == ref_param.param_count(ref_specs)
+    if arch == "deepseek-moe-16b":
         assert specs["groups"][0]["moe"]["w_up"].shape == (
             cfg.n_groups, cfg.n_experts, cfg.d_model, cfg.d_ff_expert)
-        return
-    with pytest.raises(NotImplementedError):
-        model_specs(configs.get_config(arch, reduced_config=True))
+    elif arch == "xlstm-1.3b":  # (mlstm, slstm) x 1 group
+        assert specs["groups"][0]["wq"].shape == (1, 2 * cfg.d_model, cfg.n_heads,
+                                                   2 * cfg.d_model // cfg.n_heads)
+        assert specs["groups"][1]["r_gates"].scale == 0.5
+    else:  # (rec, rec, local) x 1 group
+        assert specs["groups"][0]["rec"]["wa"].shape == (
+            1, cfg.n_heads, cfg.rnn_dim // cfg.n_heads, cfg.rnn_dim // cfg.n_heads)
+        assert specs["groups"][2]["mlp"]["w_gate"].shape == (1, cfg.d_model, cfg.d_ff)
