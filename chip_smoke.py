@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``repro_torch``): the quickest
-proof that the port builds, launches and serves on an NVIDIA Hopper card.
+proof that the port builds, launches, serves and trains on an NVIDIA
+Hopper card.
 
 Run it from the root of a checkout, with no arguments, on a machine with one
 CUDA device, ``nvcc`` and PyTorch built for CUDA::
@@ -257,15 +258,48 @@ no network. Phases, each printing one JSON object on a line of its own:
                 decode path and against a float64 sequential recurrence
                 (scaled 2e-3). Then the serve CLI's LM mode for both archs
                 in-process (reduced; recurrentgemma with ``--lm-sparse``).
+15. ``train``   training on the card (one JSON line per part, each with the
+                card's name and power limit; no kernel: the training path
+                is ``forward`` without an engine, as the reference's
+                reaches no Pallas kernel, and the launch counters must read
+                0 over the phase). (a) ``qwen3-0.6b`` as published (28
+                layers, d 1,024, 16 heads / 8 KV heads x 128, d_ff 3,072,
+                vocabulary 151,936, tied; fp32 params, bf16 compute, fp32
+                moments, remat on) through the training CLI in-process:
+                20 steps of 8 x 256 tokens with a checkpoint at the end
+                (the loss must fall), then a second run to 24 steps that
+                must resume at step 20; step time p50 over steps 2-19,
+                tokens/s, ``mfu`` against the dense bf16 peak, the peak
+                memory, the checkpoint's bytes and save / restore seconds,
+                the device's busy share of one step (``torch.profiler``).
+                (b) One float32 step at full width, B 2 x T 64, on the card
+                and on the CPU from the same parameters: loss 1e-5
+                relative, ``grad_norm`` 1e-4, every gradient leaf 1e-4
+                scaled, AdamW from the same gradients 1e-4, updated
+                parameters beyond 1e-4 only where the gradient is within
+                1e-4 of 0 (AdamW's first step is about lr * sign(g)); remat
+                on against off 1e-6. (c) (a)'s config with top-k
+                compression at 0.1: ``compress_density`` >= 0.1 and the
+                threshold at the embedding's gradient three ways (unsorted
+                ``topk`` + min, sorted ``topk``, ``kthvalue``; one value),
+                timed. (d) ``deepseek-moe-16b`` at its published width cut
+                to 2 layers (bf16 params and moments): a calibration
+                forward, ``select_dispatch_format`` on its routing
+                histogram, five ``Trainer`` steps under the pick (the loss
+                must fall, the moments stay bf16), one step under each
+                other format. (e) ``recurrentgemma-2b`` at its published
+                width cut to 8 layers: three steps of 4 x 256 tokens, loss
+                and ``grad_norm`` finite, step time and peak memory.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-14 (each path of phases
-11-14 on its own) and read just after each:
-a kernel of the path that was launched no time fails the run. Then come the
+Launch counters are set to 0 just before phases 4-15 (each path of phases
+11-15 on its own) and read just after each:
+a kernel of the path that was launched no time fails the run (phase 15's
+path launches none, and any launch there fails it). Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
 CSR kernel's entry also carries its numbers at the LM's FFN shapes, at an
 expert slice of the MoE and at recurrentgemma's FFN shapes), the
@@ -287,8 +321,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import json
+import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -414,7 +450,9 @@ from repro_torch.kernels.spmspv import (  # noqa: E402
     spmspv_pieces,
     spmspv_slots_read,
 )
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.ml import accuracy_score, r2_score, train_test_split  # noqa: E402
 from repro_torch.ml.model_zoo import CLASSIFIER_ZOO, REGRESSOR_ZOO  # noqa: E402
 from repro_torch.ml.model_zoo import build as build_estimator  # noqa: E402
@@ -432,7 +470,15 @@ from repro_torch.models.layers import attention, mlp  # noqa: E402
 from repro_torch.models.model import _embed, _logits, apply_block  # noqa: E402
 from repro_torch.models.moe import _capacity as moe_capacity  # noqa: E402
 from repro_torch.models.moe import select_dispatch_format  # noqa: E402
-from repro_torch.models.param import torch_dtype, tree_map  # noqa: E402
+from repro_torch.models.param import torch_dtype, tree_leaves, tree_map, tree_unflatten  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig,
+    apply_adamw,
+    constant,
+    cosine_schedule,
+    init_opt_state,
+)
+from repro_torch.optim.compress import _kth_largest  # noqa: E402
 from repro_torch.models.recurrent import (  # noqa: E402
     _mlstm_core,
     _rglru_in,
@@ -476,6 +522,8 @@ from repro_torch.train.serve import (  # noqa: E402
     SpmvRequest,
     SpmvServer,
 )
+from repro_torch.train import TrainConfig, Trainer, make_loss_fn, make_train_step  # noqa: E402
+from repro_torch.train.trainer import init_train_state  # noqa: E402
 from repro_torch.utils.timing import cuda_time_ms  # noqa: E402
 
 DEVICE = torch.device("cuda", 0)
@@ -619,6 +667,19 @@ XL_ARCH, XL_LAYERS = "xlstm-1.3b", 16
 XL_SLOTS, XL_REQUESTS, XL_NEW_TOKENS, XL_MAX_LEN = 2, 8, 16, 64
 SCAN_T = 256  # RG-LRU's doubling scan and four mLSTM chunks against a recurrence
 TEACHER_TOL, SCAN_TOL = 5e-3, 2e-3  # the reference tests' bounds (test_models.py)
+# train phase: qwen3-0.6b as published (28 layers, d 1,024, 16 heads / 8 KV
+# heads x 128, d_ff 3,072, vocabulary 151,936, tied; fp32 params, bf16
+# compute, fp32 moments, remat on) trained through the CLI at full depth;
+# deepseek-moe-16b cut to MOE_LAYERS and recurrentgemma-2b to RG_LAYERS at
+# their published widths
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_RESUME_STEPS = "qwen3-0.6b", 20, 24
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR = 256, 8, 5, 1e-3  # 2,048 tokens a step
+TRAIN_PARITY_BATCH = (2, 64)  # (B, T) of the card-against-CPU float32 step
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4, "remat": 1e-6}
+COMPRESS_FRAC, COMPRESS_STEPS = 0.1, 3
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_LR = 5, (4, 256), 3e-3
+RG_TRAIN_STEPS, RG_TRAIN_BATCH = 3, (4, 256)
+H100_BF16_FLOPS = 989e12  # dense bf16 peak, H100 SXM data sheet (at 700 W)
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -3285,6 +3346,358 @@ def run_recurrent_phase() -> tuple[dict, dict]:
     return payload, launches
 
 
+# ------------------------------------------------------------------- train
+class LogRecords(logging.Handler):
+    """The records of the port's loggers while attached: the trainer's
+    resume line, the checkpoint's save and restore seconds."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+    def args_of(self, prefix: str) -> list[tuple]:
+        return [r.args for r in self.records if str(r.msg).startswith(prefix)]
+
+
+def p50(xs) -> float:
+    return float(np.median(np.asarray(xs, np.float64)))
+
+
+def leaf_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| of one leaf, on the CPU."""
+    a, b = a.detach().cpu().float(), b.detach().cpu().float()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def train_cli(tmp: str, steps: int) -> Trainer:
+    """The training CLI in-process on the card: qwen3-0.6b as published."""
+    return launch_train.main([
+        "--arch", TRAIN_ARCH, "--full", "--steps", str(steps), "--seq-len", str(TRAIN_SEQ),
+        "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
+        "--ckpt-every", str(TRAIN_STEPS), "--ckpt-dir", tmp, "--seed", str(SEED)])
+
+
+def train_opt(cfg, lr=TRAIN_LR) -> AdamWConfig:
+    """The CLI's optimizer: cosine schedule, the config's moment dtype."""
+    return AdamWConfig(learning_rate=cosine_schedule(lr, TRAIN_WARMUP, TRAIN_STEPS),
+                       state_dtype=cfg.opt_state_dtype)
+
+
+def lm_batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
+    """The data pipeline's batch ``step`` on the card, as the CLI moves it."""
+    b = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch, seed=SEED)).batch_at(step)
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+
+
+def loss_and_grads(cfg, params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = make_loss_fn(cfg)(tree_unflatten(params, leaves), batch)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def timed_steps(step_fn, state: list, batches: list) -> tuple[list, list]:
+    """Steps on the card, each timed on the host clock between two
+    synchronises. Returns (seconds, metrics as floats)."""
+    secs, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return secs, metrics
+
+
+def model_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """6 N per token plus attention's 12 L T d_attn per token, without
+    remat's recompute."""
+    return tokens * (6.0 * n_params + 12.0 * cfg.n_layers * seq * cfg.n_heads * cfg.head_dim)
+
+
+def train_run(records: LogRecords, tmp: str) -> dict:
+    """(a) qwen3-0.6b at full width and depth through the training CLI:
+    ``TRAIN_STEPS`` steps with a checkpoint at the end, a second run to
+    ``TRAIN_RESUME_STEPS`` that resumes from it, one step under the
+    profiler."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_cli(tmp, TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history]
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses}")
+    # the trainer's step clock ends at float(loss), a wait for the whole stream
+    step_s = [h["time_s"] for h in trainer.history]
+    ck_bytes = sum(f.stat().st_size for f in (Path(tmp) / f"step_{TRAIN_STEPS:08d}").iterdir())
+    n_saves = len(records.args_of("saved step"))
+
+    t0 = time.perf_counter()
+    resumed = train_cli(tmp, TRAIN_RESUME_STEPS)
+    resume_wall = time.perf_counter() - t0
+    resume_steps = [h["step"] for h in resumed.history]
+    if resume_steps != list(range(TRAIN_STEPS, TRAIN_RESUME_STEPS)):
+        raise AssertionError(f"resume ran steps {resume_steps}")
+    resumed_at = records.args_of("resumed from checkpoint at step")
+    if resumed_at != [(TRAIN_STEPS,)]:
+        raise AssertionError(f"the resumed run logged {resumed_at}")
+    resume_losses = [h["loss"] for h in resumed.history]
+    del trainer, resumed
+    torch.cuda.empty_cache()
+
+    # one step under the profiler: the device's busy share
+    opt_cfg = train_opt(cfg)
+    state = list(init_train_state(cfg, opt_cfg, seed=SEED, device=DEVICE))
+    n_params = param_count(state[0])
+    step_fn = make_train_step(cfg, opt_cfg)
+    batch = lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+
+    def one_step():
+        state[0], state[1], m = step_fn(state[0], state[1], batch)
+        float(m["loss"])
+
+    profile = profile_tick(one_step)
+    del state
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, n_params, tokens, TRAIN_SEQ)
+    steady = step_s[2:]
+    step_p50 = p50(steady)
+    half = len(steady) // 2
+    return {
+        "config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], "d_ff": cfg.d_ff,
+                   "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings, "params": n_params,
+                   "param_dtype": cfg.param_dtype, "compute": cfg.compute_dtype,
+                   "moments": cfg.opt_state_dtype, "remat": cfg.remat},
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "tokens_per_step": tokens, "wall_s": wall,
+        "losses": losses, "step_s": step_s, "step_p50_ms": 1e3 * step_p50,
+        "step_halves_p50_ms": [1e3 * p50(steady[:half]), 1e3 * p50(steady[half:])],
+        "tokens_per_s": tokens / step_p50,
+        "mfu": flops / step_p50 / H100_BF16_FLOPS, "model_flops_per_step": flops,
+        "peak_flops": H100_BF16_FLOPS, "peak_is": "dense bf16, H100 SXM data sheet, 700 W",
+        "peak_memory_gb": peak / 1e9, "profile": profile,
+        "checkpoint": {"bytes": ck_bytes, "saves": n_saves,
+                       "save_s": [a[2] for a in records.args_of("saved step")],
+                       "restore_s": [a[2] for a in records.args_of("restored step")]},
+        "resume": {"steps": resume_steps, "losses": resume_losses, "wall_s": resume_wall},
+    }
+
+
+def train_parity() -> dict:
+    """(b) One float32 train step of qwen3-0.6b at full width from the same
+    parameters on the card and on the CPU; remat on against off on the
+    card.
+
+    AdamW's first step moves a parameter by about lr * sign(g). Where a
+    gradient is within rounding of 0 its sign, and so the updated
+    parameter, may differ between the devices by up to 2 lr: the updated
+    parameters are held where that is not so, every element apart from
+    them must have such a gradient (``sign_unstable``), and AdamW alone is
+    held to the bound from the same (the CPU's) gradients on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = TRAIN_TOL["leaf"]
+    cfg = get_config(TRAIN_ARCH).replace(compute_dtype="float32")
+    B, T = TRAIN_PARITY_BATCH
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    params = init_params(model_specs(cfg), gen, cfg.param_dtype, device=DEVICE)
+    host = tree_map(lambda t: t.cpu(), params)
+    batch = lm_batch(cfg, B, T)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    loss, grads = loss_and_grads(cfg, params, batch)
+    _, grads_off = loss_and_grads(cfg.replace(remat=False), params, batch)
+    t0 = time.perf_counter()
+    host_loss, host_grads = loss_and_grads(cfg, host, host_batch)
+    cpu_grad_s = time.perf_counter() - t0
+    remat = max(leaf_err(a, b) for a, b in zip(grads, grads_off))
+    del grads_off
+    grad_errs = [leaf_err(a, b) for a, b in zip(grads, host_grads)]
+    del grads
+    opt_cfg = AdamWConfig(learning_rate=constant(TRAIN_LR), state_dtype=cfg.opt_state_dtype)
+    new, _, m = make_train_step(cfg, opt_cfg)(params, init_opt_state(params, opt_cfg), batch)
+    # the CPU's step: AdamW over the CPU's gradients (its step function
+    # would recompute the same gradients)
+    t0 = time.perf_counter()
+    host_new, _, host_m = apply_adamw(host, tree_unflatten(host, host_grads),
+                                      init_opt_state(host, opt_cfg), opt_cfg)
+    cpu_step_s = time.perf_counter() - t0
+    param_errs, unstable, unexplained = [], 0, 0
+    for a, b, g in zip(tree_leaves(new), tree_leaves(host_new), host_grads):
+        param_errs.append(leaf_err(a, b))
+        moved = (a.cpu() - b).abs() > tol * b.abs().max()
+        unstable += int(moved.sum())
+        unexplained += int((g[moved].abs() > tol * g.abs().max()).sum())
+    del new
+    # AdamW alone, from the same (the CPU's) gradients on both devices
+    same = apply_adamw(params, tree_unflatten(params, [g.to(DEVICE) for g in host_grads]),
+                       init_opt_state(params, opt_cfg), opt_cfg)[0]
+    adamw_errs = [leaf_err(a, b) for a, b in zip(tree_leaves(same), tree_leaves(host_new))]
+    out = {
+        "batch": [B, T], "compute": "float32", "tf32": False,
+        "loss": [float(loss), float(host_loss)],
+        "loss_rel": abs(float(loss) - float(host_loss)) / abs(float(host_loss)),
+        "step_loss": float(m["loss"]),
+        "grad_norm": [float(m["grad_norm"]), float(host_m["grad_norm"])],
+        "grad_norm_rel": abs(float(m["grad_norm"]) - float(host_m["grad_norm"]))
+        / float(host_m["grad_norm"]),
+        "grad_leaf_max": max(grad_errs), "param_leaf_max": max(param_errs),
+        "sign_unstable": {"elements": unstable, "with_gradient_above_tol": unexplained,
+                          "of": sum(t.numel() for t in host_grads)},
+        "adamw_same_grads_leaf_max": max(adamw_errs),
+        "remat_on_vs_off": remat, "leaves": len(grad_errs),
+        "cpu_s": {"loss_and_grads": cpu_grad_s, "adamw": cpu_step_s}, "tol": TRAIN_TOL,
+    }
+    if not (out["loss_rel"] <= TRAIN_TOL["loss"] and out["grad_norm_rel"] <= TRAIN_TOL["grad_norm"]
+            and out["grad_leaf_max"] <= tol and unexplained == 0
+            and out["adamw_same_grads_leaf_max"] <= tol and remat <= TRAIN_TOL["remat"]):
+        raise AssertionError(f"train parity: {out}")
+    return out
+
+
+def train_compress() -> dict:
+    """(c) (a)'s config with top-k compression at ``COMPRESS_FRAC``; the
+    threshold's selection at the embedding, three ways (the same value)."""
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = train_opt(cfg)
+    state = list(init_train_state(cfg, opt_cfg, seed=SEED, compress_frac=COMPRESS_FRAC,
+                                  device=DEVICE))
+    step_fn = make_train_step(cfg, opt_cfg, compress_frac=COMPRESS_FRAC)
+    batches = [lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i) for i in range(COMPRESS_STEPS)]
+    secs, metrics = timed_steps(step_fn, state, batches)
+    density = [m["compress_density"] for m in metrics]
+    if not all(d >= COMPRESS_FRAC for d in density):
+        raise AssertionError(f"compress_density {density}")
+    # the threshold at the embedding's gradient (k = 10 % of 155.6 M)
+    _, grads = loss_and_grads(cfg, state[0], batches[0])
+    a = grads[0].abs().reshape(-1)
+    del grads, state
+    n = a.numel()
+    k = max(int(n * COMPRESS_FRAC), 1)
+    ways = {"topk_unsorted_min": lambda: _kth_largest(a, k),
+            "topk_sorted_last": lambda: torch.topk(a, k).values[-1],
+            "kthvalue": lambda: torch.kthvalue(a, n - k + 1).values}
+    vals = {w: float(f()) for w, f in ways.items()}
+    if len(set(vals.values())) != 1:
+        raise AssertionError(f"threshold ways disagree: {vals}")
+    ms = {w: cuda_time_ms(f, warmup=1, reps=3)["median_ms"] for w, f in ways.items()}
+    torch.cuda.empty_cache()
+    return {"frac": COMPRESS_FRAC, "losses": [m["loss"] for m in metrics],
+            "density": density, "step_s": secs, "step_p50_ms": 1e3 * p50(secs),
+            "threshold": {"entries": n, "k": k, "value": vals["kthvalue"], "ms": ms,
+                          "used": "topk_unsorted_min"}}
+
+
+def train_moe(tmp: str) -> dict:
+    """(d) deepseek-moe-16b at its published width, ``MOE_LAYERS`` deep:
+    a calibration forward picks the dispatch format from the routing
+    histogram, ``Trainer`` runs ``MOE_TRAIN_STEPS`` under the pick, then one
+    step under each other format."""
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    B, T = MOE_TRAIN_BATCH
+    opt_cfg = AdamWConfig(learning_rate=MOE_TRAIN_LR, weight_decay=0.0,
+                          state_dtype=cfg.opt_state_dtype)
+    params, _ = init_train_state(cfg, opt_cfg, seed=SEED, device=DEVICE)
+    n_params = param_count(params)
+    with torch.no_grad():
+        _, aux = make_loss_fn(cfg)(params, lm_batch(cfg, B, T))
+    pick = select_dispatch_format(aux["tokens_per_expert"])
+    del params
+    cfg = cfg.replace(dispatch_format=pick)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=T, global_batch=B, seed=SEED)
+    tc = TrainConfig(steps=MOE_TRAIN_STEPS, log_every=1, ckpt_every=MOE_TRAIN_STEPS,
+                     ckpt_dir=tmp)
+    trainer = Trainer(cfg, dc, opt_cfg, tc, device=DEVICE)
+    params, opt = init_train_state(cfg, opt_cfg, seed=SEED, device=DEVICE)
+    params, opt = trainer.run(params, opt)
+    losses = [h["loss"] for h in trainer.history]
+    moments = sorted({str(t.dtype) for t in tree_leaves(opt["m"]) + tree_leaves(opt["v"])})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+            and moments == ["torch.bfloat16"]):
+        raise AssertionError(f"moe train: losses {losses}, moments {moments}")
+    others = {}
+    state = [params, opt]
+    for fmt in ("dense", "ell", "sell"):
+        if fmt == pick:
+            continue
+        secs, metrics = timed_steps(make_train_step(cfg.replace(dispatch_format=fmt), opt_cfg),
+                                    state, [lm_batch(cfg, B, T, MOE_TRAIN_STEPS)])
+        others[fmt] = {"loss": metrics[0]["loss"], "step_s": secs[0]}
+        if not np.isfinite(metrics[0]["loss"]):
+            raise AssertionError(f"moe step under {fmt}: {metrics}")
+    del params, opt, state
+    torch.cuda.empty_cache()
+    return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+                       "param_dtype": cfg.param_dtype, "moments": cfg.opt_state_dtype,
+                       "experts": cfg.n_experts, "top_k": cfg.top_k},
+            "reduced": [f"depth: {get_config(MOE_ARCH).n_layers} -> {MOE_LAYERS} layers"],
+            "batch": [B, T], "histogram": aux["tokens_per_expert"].tolist(), "pick": pick,
+            "losses": losses, "step_s": [h["time_s"] for h in trainer.history],
+            "moments": moments, "other_formats": others}
+
+
+def train_recurrent() -> dict:
+    """(e) recurrentgemma-2b at its published width, ``RG_LAYERS`` deep:
+    ``RG_TRAIN_STEPS`` steps through the doubling scan and local
+    attention."""
+    cfg = get_config(RG_ARCH).replace(n_layers=RG_LAYERS)
+    B, T = RG_TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = train_opt(cfg)
+    state = list(init_train_state(cfg, opt_cfg, seed=SEED, device=DEVICE))
+    n_params = param_count(state[0])
+    secs, metrics = timed_steps(make_train_step(cfg, opt_cfg), state,
+                                [lm_batch(cfg, B, T, i) for i in range(RG_TRAIN_STEPS)])
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"recurrent train: {metrics}")
+    del state
+    torch.cuda.empty_cache()
+    return {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+                       "blocks": list(cfg.pattern) * cfg.n_groups + list(cfg.tail_blocks)},
+            "reduced": [f"depth: {get_config(RG_ARCH).n_layers} -> {RG_LAYERS} layers"],
+            "batch": [B, T], "losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics], "step_s": secs,
+            "step_p50_ms": 1e3 * p50(secs[1:]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def run_train_phase() -> tuple[dict, dict]:
+    """Phase 15: training at full width on the card, parts (a)-(e), each
+    emitted on a line of its own with the card's name and power limit. The
+    training path is ``forward`` without an engine: it launches none of
+    B1-B8, as the reference's reaches no Pallas kernel, and the counters
+    must read 0 over the phase. Returns (summary, launches)."""
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    records = LogRecords()
+    logging.getLogger("repro_torch").addHandler(records)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train-", dir=os.path.join(HERE, "build"))
+    reset_launches()
+    seconds = {}
+    try:
+        for part, fn in (("a", lambda: train_run(records, os.path.join(tmp, "qwen3"))),
+                         ("b", train_parity), ("c", train_compress),
+                         ("d", lambda: train_moe(os.path.join(tmp, "moe"))),
+                         ("e", train_recurrent)):
+            t0 = time.perf_counter()
+            out = fn()
+            seconds[part] = time.perf_counter() - t0
+            emit(f"train_{part}", card=card, seconds=seconds[part], **out)
+    finally:
+        logging.getLogger("repro_torch").removeHandler(records)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    got = read_launches()
+    check_launches("train", got, {k: 0 for k in got})
+    return {"card": card, "part_seconds": seconds}, got
+
+
 # -------------------------------------------------------------------- spmm
 def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDULE) -> dict:
     """Hold B8 against its plain version and a float64 host product over the
@@ -4131,6 +4544,12 @@ def main() -> None:
         checked["csr"][key] = {k: v for k, v in row.items() if k != "launch"}
     torch.cuda.empty_cache()
     emit("recurrent", seconds=time.perf_counter() - t0, launches=got, **rec_run)
+
+    # ---- train: qwen3-0.6b trained at full width and depth (no kernel) ---
+    t0 = time.perf_counter()
+    train_run_, got = run_train_phase()
+    torch.cuda.empty_cache()
+    emit("train", seconds=time.perf_counter() - t0, launches=got, **train_run_)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

@@ -10,8 +10,12 @@ Python loop — the reference's ``lax.scan``) + ``tail_blocks``. Block kinds:
 Three entry points: ``forward`` (full sequence, no cache), ``prefill``
 (fills the serving cache over a full prompt) and ``decode_step`` (one
 token). They return fresh caches; the caches passed in are not modified.
-The reference's ``remat`` (activation checkpointing) is a training concern
-with no effect on these inference passes, and is not read here.
+With ``cfg.remat`` set (the default), a pass that takes gradients wraps
+each group block in ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps its group body in ``jax.checkpoint``: only the block's
+input is kept and the rest is recomputed on the backward pass. Head and
+tail blocks run unwrapped, as in the reference; serving (no gradient) and
+the sparse engine's path never recompute.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
@@ -34,7 +39,15 @@ from repro_torch.models.layers import (
     rmsnorm_spec,
 )
 from repro_torch.models.moe import moe_ffn, moe_specs
-from repro_torch.models.param import ParamSpec, init_params, stack_specs, torch_dtype, tree_map
+from repro_torch.models.param import (
+    ParamSpec,
+    init_params,
+    stack_specs,
+    torch_dtype,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.models.recurrent import (
     _rglru_in,
     _rglru_out,
@@ -278,7 +291,19 @@ def _logits(params, cfg, x):
     return logits
 
 
+def _group_params(pstack, n: int) -> list:
+    """The ``n`` groups' parameter trees of one stacked pattern position.
+    Each leaf is unbound once, so autograd writes the gradient of a stacked
+    leaf in one ``stack`` rather than one full-size buffer per group."""
+    unbound = [leaf.unbind(0) for leaf in tree_leaves(pstack)]
+    return [tree_unflatten(pstack, [u[g] for u in unbound]) for g in range(n)]
+
+
 def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None):
+    """Every block in layer order. The auxiliaries ride in the carry
+    ``(x, moe_aux, tokens_per_expert)``, as the reference's scan carries
+    them: nothing outside the blocks is mutated, so a block recomputed
+    under activation checkpointing adds its auxiliaries once."""
     if engine is not None and cfg.n_groups and not unroll_layers:
         # the reference's group scan cannot hold per-layer host-planned
         # kernels; the port keeps its contract so callers behave the same
@@ -288,45 +313,58 @@ def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None)
             "params — call with unroll_layers=True to serve sparse"
         )
     new_cache: dict[str, list] = {"head": [], "groups": [], "tail": []}
-    aux = _zero_aux(cfg, x.device)
+    zero = _zero_aux(cfg, x.device)
+    carry = (x, zero["moe_aux"], zero["tokens_per_expert"])
+    # jax.checkpoint(group_fn) of the reference: group blocks keep only
+    # their input and recompute the rest on the backward pass. Not on the
+    # engine path (inference-only, host-planned kernels), and not where
+    # autograd records nothing (serving).
+    remat = cfg.remat and engine is None and torch.is_grad_enabled()
 
-    def block(kind, p, x, c, name):
-        x, nc, block_aux = apply_block(kind, p, x, cfg, positions=positions, cache=c,
-                                       engine=engine, name=name)
+    def block(kind, p, carry, c, name, checkpointed=False):
+        def run(x, p):
+            return apply_block(kind, p, x, cfg, positions=positions, cache=c,
+                               engine=engine, name=name)
+
+        x, aux_l, aux_c = carry
+        if checkpointed:
+            x, nc, block_aux = torch.utils.checkpoint.checkpoint(run, x, p, use_reentrant=False)
+        else:
+            x, nc, block_aux = run(x, p)
         if block_aux is not None:
-            aux["moe_aux"] = aux["moe_aux"] + block_aux[0]
-            aux["tokens_per_expert"] = aux["tokens_per_expert"] + block_aux[1]
-        return x, nc
+            aux_l, aux_c = aux_l + block_aux[0], aux_c + block_aux[1]
+        return (x, aux_l, aux_c), nc
 
-    def run_list(kinds, plist, clist, x, out_key):
+    def run_list(kinds, plist, clist, carry, out_key):
         for i, (kind, p, c) in enumerate(zip(kinds, plist, clist)):
-            x, nc = block(kind, p, x, c, f"{out_key}{i}")
+            carry, nc = block(kind, p, carry, c, f"{out_key}{i}")
             new_cache[out_key].append(nc)
-        return x
+        return carry
 
     head_caches = cache["head"] if cache else [None] * len(cfg.first_blocks)
-    x = run_list(cfg.first_blocks, params["head"], head_caches, x, "head")
+    carry = run_list(cfg.first_blocks, params["head"], head_caches, carry, "head")
 
     for pi, kind in enumerate(cfg.pattern if cfg.n_groups else ()):
-        pstack = params["groups"][pi]
         cstack = cache["groups"][pi] if cache else None
+        pstack = params["groups"][pi]
+        checkpointed = remat and (carry[0].requires_grad
+                                  or any(t.requires_grad for t in tree_leaves(pstack)))
         ncs = []
-        for g in range(cfg.n_groups):
-            p_g = tree_map(lambda a: a[g], pstack)
+        for g, p_g in enumerate(_group_params(pstack, cfg.n_groups)):
             c_g = tree_map(lambda a: a[g], cstack) if cstack is not None else None
-            x, nc = block(kind, p_g, x, c_g, f"g{pi}x{g}")
+            carry, nc = block(kind, p_g, carry, c_g, f"g{pi}x{g}", checkpointed)
             ncs.append(nc)
         new_cache["groups"].append(
             tree_map(lambda *a: torch.stack(a), *ncs) if cache else None
         )
 
     tail_caches = cache["tail"] if cache else [None] * len(cfg.tail_blocks)
-    x = run_list(cfg.tail_blocks, params["tail"], tail_caches, x, "tail")
+    x, aux_l, aux_c = run_list(cfg.tail_blocks, params["tail"], tail_caches, carry, "tail")
 
     out_cache = (
         {k: tuple(v) for k, v in new_cache.items()} if cache else None
     )
-    return x, out_cache, aux
+    return x, out_cache, {"moe_aux": aux_l, "tokens_per_expert": aux_c}
 
 
 def forward(

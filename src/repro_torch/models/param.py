@@ -61,6 +61,12 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``like``'s structure with ``leaves`` in its leaf order (``tree_leaves``)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def stack_specs(tree: Any, n: int, axis_name: str = "layers") -> Any:
     """Prepend a stacked (group) leading dim to every spec in the tree."""
     return tree_map(
@@ -110,14 +116,42 @@ def params_from_numpy(tree: Any, device: str | torch.device | None = None) -> An
     ``ml_dtypes`` type) are carried bit for bit, stacked ``(E, d, f)``
     expert leaves and the float32 router as any other leaf."""
     device = resolve_device(device)
+    return tree_map(lambda a: leaf_from_numpy(a, device=device), tree)
 
-    def one(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a, copy=True))
-        return t.to(device)
+
+def leaf_from_numpy(a, dtype: str | None = None, *, device) -> torch.Tensor:
+    """One array as a tensor on ``device``. A bfloat16 array is carried bit
+    for bit, whether numpy holds it as ``ml_dtypes.bfloat16`` or as its
+    uint16 bits with ``dtype="bfloat16"`` (a checkpoint's form)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or dtype == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def leaf_to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A tensor's host copy and its dtype name; a bfloat16 tensor comes back
+    as its uint16 bits (numpy has no bfloat16 of its own)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
+    a = t.cpu().numpy()
+    return a, str(a.dtype)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The reverse of ``params_from_numpy``: a tree of tensors as numpy
+    arrays, same nesting; bfloat16 leaves as ``ml_dtypes.bfloat16`` (the
+    reference's host dtype, imported only when such a leaf occurs)."""
+
+    def one(t):
+        a, name = leaf_to_numpy(t)
+        if name == "bfloat16":
+            import ml_dtypes
+
+            a = a.view(ml_dtypes.bfloat16)
+        return a
 
     return tree_map(one, tree)
 

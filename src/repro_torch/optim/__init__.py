@@ -1,7 +1,19 @@
-"""Optimizer-side utilities of the port. Only ``magnitude_prune`` (the
-sparse-serving path) is here so far; AdamW, the schedules and gradient
-compression wait for the training slice."""
+"""Optimizer-side code of the port: AdamW with global-norm clipping and
+low-precision moments, learning-rate schedules, top-k gradient compression
+with error feedback, and magnitude pruning for the sparse-serving path."""
 
-from repro_torch.optim.compress import magnitude_prune
+from repro_torch.optim.adamw import AdamWConfig, apply_adamw, init_opt_state
+from repro_torch.optim.compress import compress_gradients, init_error_feedback, magnitude_prune
+from repro_torch.optim.schedule import constant, cosine_schedule, linear_warmup
 
-__all__ = ["magnitude_prune"]
+__all__ = [
+    "AdamWConfig",
+    "apply_adamw",
+    "init_opt_state",
+    "constant",
+    "cosine_schedule",
+    "linear_warmup",
+    "compress_gradients",
+    "init_error_feedback",
+    "magnitude_prune",
+]

@@ -35,6 +35,12 @@ LM_MODULES = (
     "repro_torch.models.sparse_linear", "repro_torch.models.moe",
     "repro_torch.models.recurrent", "repro_torch.configs.shapes",
 )
+# modules of the training slice
+TRAIN_MODULES = (
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+    "repro_torch.train.trainer", "repro_torch.launch.train",
+)
 # modules of the predictor zoo
 ZOO_MODULES = (
     "repro_torch.ml.centroid", "repro_torch.ml.svm", "repro_torch.ml.boosting",
@@ -46,6 +52,7 @@ def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
     assert set(LM_MODULES) <= set(mods) and set(ZOO_MODULES) <= set(mods)
+    assert set(TRAIN_MODULES) <= set(mods)
     assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 12
     code = (
         "import importlib, sys\n"
@@ -83,11 +90,10 @@ def test_no_source_file_imports_jax_or_the_reference_package(path):
 EXPORTS = {
     "configs": (set(), set()),
     "models": ({"abstract_params", "axes_tree"}, {"init_cache", "params_from_numpy"}),
-    "optim": ({"AdamWConfig", "apply_adamw", "compress_gradients", "constant",
-               "cosine_schedule", "init_error_feedback", "init_opt_state", "linear_warmup"},
-              {"magnitude_prune"}),
-    "train": ({"TrainConfig", "Trainer", "make_loss_fn", "make_train_step"},
-              {"SpmvRequest", "SpmvServer"}),
+    "optim": (set(), {"magnitude_prune"}),
+    "train": (set(), {"SpmvRequest", "SpmvServer"}),
+    "data": (set(), set()),
+    "checkpoint": (set(), set()),
     "sparse": (set(), set()),
     "telemetry": (set(), set()),
     "obs": (set(), set()),
@@ -149,7 +155,9 @@ def test_entry_points_without_device_raise_where_cuda_is_absent():
     from repro_torch.kernels.ref import spmm_dense, spmv_dense
     from repro_torch.kernels.spmspv import csc_from_dense
     from repro_torch.models import init_cache, init_params, model_specs, params_from_numpy
+    from repro_torch.optim import AdamWConfig
     from repro_torch.sparse import formats
+    from repro_torch.train.trainer import init_train_state
 
     cfg = get_config("qwen3-0.6b", reduced_config=True)
 
@@ -171,6 +179,7 @@ def test_entry_points_without_device_raise_where_cuda_is_absent():
         lambda: init_params(model_specs(cfg), None, "float32"),
         lambda: params_from_numpy({"w": dense}),
         lambda: init_cache(cfg, 1, 8),
+        lambda: init_train_state(cfg, AdamWConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
