@@ -290,14 +290,42 @@ no network. Phases, each printing one JSON object on a line of its own:
                 other format. (e) ``recurrentgemma-2b`` at its published
                 width cut to 8 layers: three steps of 4 x 256 tokens, loss
                 and ``grad_norm`` finite, step time and peak memory.
+16. ``dist``    multi-device (one JSON line per part, each with the card's
+                name and power limit). (a) The sharded partitioned executor
+                at full size on ``rim`` and ``hetero`` (n = 14,000):
+                ``shard_partitioned`` of a 4-block partition, which must log
+                its re-cut to ``torch.cuda.device_count()`` blocks, and of
+                the composite plan a session's predictor makes; each runs
+                its ELL carrier through B2 on every mesh device (``y``
+                against a float64 host product: 1e-4 scaled at fp32, 3e-2
+                at bf16; B2's counter must move by the mesh extent on every
+                call; every ``sharded_call`` output on its device), then
+                timed by CUDA events (L2 flushed) in turns with the
+                sequential and fused executors of the same plan, for the
+                record. (b) One ``make_train_step`` step of ``qwen3-0.6b``
+                at full width inside ``sharding_context(make_host_mesh())``
+                gives the same bits as outside it; ``launch.train
+                --production-mesh`` must raise the mesh's error on one
+                card. (c) ``CheckpointManager.restore(shardings=)`` places
+                a saved tree on the card bit for bit. (d) The dry run
+                (``repro_torch.launch.dryrun``) in three subprocesses at
+                once, started before (a) so that they count on the host's
+                cores while (a)-(c) use the card, each on a ``cuda`` mesh
+                of a fake process group:
+                ``qwen3-0.6b`` ``train_4k`` on 16 x 16 and 2 x 16 x 16 and
+                ``deepseek-moe-16b`` ``decode_32k`` on 16 x 16; per cell its
+                wall seconds, memory per device against 80 GB, the
+                extrapolated FLOPs and bytes, collectives by kind and the
+                roofline terms (counted from fake tensors and data-sheet
+                constants, not timed). A cell that fails fails the run.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-15 (each path of phases
-11-15 on its own) and read just after each:
+Launch counters are set to 0 just before phases 4-16 (each path of phases
+11-16 on its own) and read just after each:
 a kernel of the path that was launched no time fails the run (phase 15's
 path launches none, and any launch there fails it). Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
@@ -500,7 +528,12 @@ from repro_torch.partition import (  # noqa: E402
     compile_fused_partitioned,
     compile_partitioned,
     partition_rows,
+    shard_partitioned,
 )
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.dist import sharding_context  # noqa: E402
+from repro_torch.dist.sharding import NamedSharding, PartitionSpec  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.solvers import AdaptiveSpmvPolicy, cg, pagerank, power_iteration  # noqa: E402
 from repro_torch.sparse.generate import (  # noqa: E402
     MATRIX_NAMES,
@@ -676,6 +709,13 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_RESUME_STEPS = "qwen3-0.6b", 20, 24
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR = 256, 8, 5, 1e-3  # 2,048 tokens a step
 TRAIN_PARITY_BATCH = (2, 64)  # (B, T) of the card-against-CPU float32 step
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4, "remat": 1e-6}
+# phase 16 (dist): sharded executor calls per matrix and executor; the dry
+# run's cells (arch, shape, mesh), run at once in subprocesses
+DIST_POOL = ("rim", "hetero")
+DIST_CALLS = 8
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "pod1"), ("qwen3-0.6b", "train_4k", "pod2"),
+                ("deepseek-moe-16b", "decode_32k", "pod1"))
+DRYRUN_TIMEOUT_S = 600
 COMPRESS_FRAC, COMPRESS_STEPS = 0.1, 3
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_LR = 5, (4, 256), 3e-3
 RG_TRAIN_STEPS, RG_TRAIN_BATCH = 3, (4, 256)
@@ -3698,6 +3738,262 @@ def run_train_phase() -> tuple[dict, dict]:
     return {"card": card, "part_seconds": seconds}, got
 
 
+# -------------------------------------------------------------------- dist
+def sharded_row(name: str, how: str, dense: np.ndarray, sharded, x: np.ndarray) -> dict:
+    """``DIST_CALLS`` calls of a sharded executor (its B2 launches counted
+    by the caller), each ``y`` against the float64 host product and against
+    B2's plain version on the same planes, every ``sharded_call`` output on
+    its own mesh device."""
+    tol = tol_of(sharded.schedule)
+    ref = host_product(dense, x)
+
+    def rows(parts):
+        return np.concatenate([parts[b.index][0, : b.n_rows].cpu().numpy()
+                               for b in sharded.partition.blocks])
+
+    plain = rows([ell_spmv_plain(d, c, torch.as_tensor(x, device=dev), sharded.schedule)[None]
+                  for d, c, dev in zip(sharded.data, sharded.cols, sharded.devices)])
+    errs, plain_errs = [], []
+    for _ in range(DIST_CALLS):
+        parts = sharded.sharded_call(x)
+        if [t.device for t in parts] != list(sharded.mesh.devices):
+            raise AssertionError(f"{name} ({how}): outputs on {[t.device for t in parts]}")
+        y = rows(parts)
+        errs.append(scaled_err(y, ref))
+        plain_errs.append(scaled_err(y, plain))
+    if not (np.isfinite(errs).all() and max(errs) <= tol and max(plain_errs) <= tol):
+        raise AssertionError(f"sharded executor on {name} ({how}) wrong: {max(errs):.3e} "
+                             f"(host), {max(plain_errs):.3e} (plain) > {tol}")
+    return {"matrix": name, "from": how, "blocks": sharded.n_blocks,
+            "extent": sharded.mesh.shape["data"], "padded_rows": sharded.padded_rows,
+            "width": int(sharded.data[0].shape[1]), "schedule": sched_tag(sharded.schedule),
+            "calls": DIST_CALLS, "max_err": max(errs), "max_err_vs_plain": max(plain_errs),
+            "tol": tol}
+
+
+def dist_sharded(tuner, pool: dict) -> dict:
+    """Phase 16(a): the sharded executor at full size, from a 4-block
+    partition (re-cut to the card count, logged) and from the composite
+    plan a session's predictor makes; B2 launches = calls x extent. Then,
+    for the record, ``sharded_call`` timed in turns with the sequential and
+    fused executors of the plan (launches not counted)."""
+    session = AutoSpmvSession(tuner)
+    records = LogRecords()
+    logging.getLogger("repro_torch").addHandler(records)
+    rows, timings, launches, refused = [], {}, 0, {}
+    n_dev = torch.cuda.device_count()
+    try:
+        for name in DIST_POOL:
+            dense = pool[name]
+            x = np.random.default_rng(SEED + 16).normal(size=dense.shape[1]).astype(np.float32)
+            seq, fused = (session.partitioned_optimize(dense, max_blocks=MAX_BLOCKS, fused=f)
+                          for f in (False, True))
+            built = {}
+            for how, src in (("partition_rows(4)", partition_rows(dense, 4)),
+                             ("predictor_plan", seq.plan)):
+                records.records.clear()
+                try:
+                    built[how] = shard_partitioned(dense, src)
+                except InfeasibleConfig as exc:
+                    # the carrier's ELL storage guard: reported, not hidden
+                    refused[f"{name}:{how}"] = str(exc)
+                    continue
+                recut = records.args_of("re-partitioning")
+                n_src = src.partition.n_blocks if how == "predictor_plan" else src.n_blocks
+                if recut != ([(n_src, n_dev)] if n_src != n_dev else []):
+                    raise AssertionError(f"{name} ({how}): re-cut to {n_dev} logged as {recut}")
+                reset_launches()
+                rows.append({**sharded_row(name, how, dense, built[how], x), "recut": recut})
+                torch.cuda.synchronize()
+                got = read_launches()
+                want = {**{k: 0 for k in got}, "ell": DIST_CALLS * built[how].mesh.shape["data"]}
+                check_launches(f"dist({name}, {how})", got, want)
+                launches += got["ell"]
+            if not built:
+                continue
+            sharded = next(iter(built.values()))
+            xt = torch.as_tensor(x, device=DEVICE)
+            nnz = int((dense != 0).sum())
+            slots = sum(int(d.numel()) for d in sharded.data)
+            calls = {"sharded": lambda: sharded.sharded_call(xt),
+                     "sequential": lambda: seq.kernel(xt), "fused": lambda: fused.kernel(xt)}
+            order = ["sharded", "sequential", "fused", "fused", "sequential", "sharded"]
+            ms = {k: [] for k in calls}
+            for k in order:
+                ms[k].append(timed(calls[k]))
+            plain = [(d, c, xt.to(dev)) for d, c, dev in
+                     zip(sharded.data, sharded.cols, sharded.devices)]
+            timings[name] = {
+                "in_turns_ms": ms, "plan_formats": list(seq.plan.formats),
+                "plan_blocks": seq.plan.partition.n_blocks,
+                "sharded_from": next(iter(built)),
+                "plain_ms": timed(lambda: [ell_spmv_plain(d, c, v, sharded.schedule)
+                                           for d, c, v in plain]),
+                "bound_ms": bound((8 * nnz, 4 * dense.shape[1]), dense.shape[0], 2 * nnz)[0],
+                # the carrier's padded slots, each read (value and column) and
+                # multiplied: what B2 must do on these planes
+                "padded_slots": slots,
+                "padded_bound_ms": bound((8 * slots, 4 * dense.shape[1]), dense.shape[0],
+                                         2 * slots)[0]}
+            library_call("sharded", dense, None, xt, host_product(dense, x), timings[name])
+    finally:
+        logging.getLogger("repro_torch").removeHandler(records)
+    return {"devices": n_dev, "runs": rows, "refused_by_storage_guard": refused,
+            "timings": timings, "ell_launches": launches}
+
+
+def dist_train_step() -> dict:
+    """Phase 16(b): one full-width qwen3-0.6b step inside
+    ``sharding_context(make_host_mesh())`` gives the bits of the same step
+    outside it (every ``hint`` is the identity on plain tensors); the
+    training CLI's ``--production-mesh`` raises the mesh's error here."""
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+    params, state = init_train_state(cfg, opt, seed=SEED, device=DEVICE)
+    batch = lm_batch(cfg, *TRAIN_PARITY_BATCH)
+    step = make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    plain = step(params, state, batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sharding_context(make_host_mesh()):
+        inside = step(params, state, batch)
+    torch.cuda.synchronize()
+    t_inside = time.perf_counter() - t0
+    loss = float(plain[2]["loss"])
+    a, b = tree_leaves(plain), tree_leaves(inside)
+    differ = [i for i, (u, v) in enumerate(zip(a, b)) if not torch.equal(u, v)]
+    if len(a) != len(b) or differ:
+        raise AssertionError(f"the step inside the host mesh's context differs at leaves {differ}")
+    del plain, inside, params, state
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dist-", dir=os.path.join(HERE, "build"))
+    try:
+        launch_train.main(["--arch", TRAIN_ARCH, "--production-mesh", "--steps", "1",
+                           "--ckpt-dir", tmp])
+    except RuntimeError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("--production-mesh trained on one card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "needs 256 ranks" not in refusal:
+        raise AssertionError(f"--production-mesh raised another error: {refusal}")
+    return {"leaves": len(a), "same_bits": True, "loss": loss,
+            "step_s": {"outside": t_plain, "inside": t_inside},
+            "production_mesh_refused": refusal}
+
+
+def dist_restore() -> dict:
+    """Phase 16(c): a saved tree restored with ``shardings=`` lands on the
+    card (a ``torch.device`` leaf, a host-mesh ``NamedSharding`` leaf), the
+    same bits; a leaf without one follows ``target_like`` (the CPU)."""
+    g = torch.Generator().manual_seed(SEED)
+    tree = {"w": torch.randn(4096, 1024, generator=g),
+            "h": [torch.randn(1024, generator=g).to(torch.bfloat16),
+                  torch.tensor(7, dtype=torch.int32)],
+            "cpu": torch.arange(10, dtype=torch.float32)}
+    host = NamedSharding(make_host_mesh(), PartitionSpec())
+    tmp = tempfile.mkdtemp(prefix="dist-ckpt-", dir=os.path.join(HERE, "build"))
+    try:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(1, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, _ = mgr.restore(tree, shardings={"w": DEVICE, "h": [host, host]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pairs = [(tree["w"], out["w"]), (tree["h"][0], out["h"][0]), (tree["h"][1], out["h"][1]),
+             (tree["cpu"], out["cpu"])]
+    where = [str(b.device) for _, b in pairs]
+    if where != [str(DEVICE)] * 3 + ["cpu"]:
+        raise AssertionError(f"restore(shardings=) placed leaves on {where}")
+    if not all(a.dtype == b.dtype and torch.equal(a, b.cpu()) for a, b in pairs):
+        raise AssertionError("restore(shardings=) changed a leaf's bits")
+    return {"leaves": where, "same_bits": True, "save_s": save_s, "restore_s": restore_s}
+
+
+def start_dryruns() -> dict:
+    """Phase 16(d), started: ``DRYRUN_CELLS`` through the dry-run CLI, one
+    subprocess each, all at once, on a ``cuda`` mesh. They count on the
+    host's cores while (a)-(c) run on the card."""
+    out_dir = tempfile.mkdtemp(prefix="dryrun-", dir=os.path.join(HERE, "build"))
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", mesh, "--device-type", "cuda", "--out", out_dir]
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return {"out_dir": out_dir, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_dryruns(started: dict) -> None:
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(started["out_dir"], ignore_errors=True)
+
+
+def finish_dryruns(started: dict) -> dict:
+    """Phase 16(d): wait for every cell; one that fails or outlasts
+    ``DRYRUN_TIMEOUT_S`` fails the phase. Per cell what its artifact says."""
+    cells = []
+    for (arch, shape, mesh), proc in started["procs"].items():
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - started["t0"])
+        try:
+            _, err = proc.communicate(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: over {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {arch} {shape} {mesh} failed "
+                                 f"(exit {proc.returncode}):\n{err[-3000:]}")
+        mesh_name = "pod2x16x16" if mesh == "pod2" else "pod16x16"
+        art = json.loads(Path(started["out_dir"], f"{arch}__{shape}__{mesh_name}.json").read_text())
+        if art.get("device_type") != "cuda" or "roofline" not in art:
+            raise AssertionError(f"dry run {arch} {shape} {mesh}: artifact {art}")
+        cells.append({
+            "arch": arch, "shape": shape, "mesh": art["mesh"], "n_chips": art["n_chips"],
+            "step_s_full": art["step_s_full"],
+            "step_s_per_rep": {k: v["step_s"] for k, v in art["cost_pass"]["per_rep"].items()},
+            "memory": art["memory"], "hbm_per_device_gb": art["hbm_per_device_gb"],
+            "fits_80gb": art["fits_hbm"],
+            "extrapolated_per_device": art["cost_pass"]["extrapolated_per_device"],
+            "collectives_by_kind": art["cost_pass"]["collectives_by_kind_full"],
+            "roofline": art["roofline"]})
+    return {"cells": cells, "wall_s": time.perf_counter() - started["t0"],
+            "hardware": "H100 SXM data sheet: 989 TFLOP/s bf16, 3.35 TB/s, 80 GB; "
+                        "collectives at 50 GB/s per GPU (NDR InfiniBand)"}
+
+
+def run_dist_phase(tuner, pool: dict) -> tuple[dict, dict]:
+    """Phase 16: multi-device, parts (a)-(d), each emitted on a line of its
+    own with the card's name and power limit. Returns (summary, the main
+    path's launches: B2 from (a) only)."""
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    seconds = {}
+    got = {k: 0 for k in WRAPPERS}
+    started = start_dryruns()
+    try:
+        for part, fn in (("a", lambda: dist_sharded(tuner, pool)), ("b", dist_train_step),
+                         ("c", dist_restore), ("d", lambda: finish_dryruns(started))):
+            t0 = time.perf_counter()
+            out = fn()
+            seconds[part] = time.perf_counter() - t0
+            if part == "a":
+                got["ell"] = out["ell_launches"]
+            emit(f"dist_{part}", card=card, seconds=seconds[part], **out)
+    finally:
+        stop_dryruns(started)
+    return {"card": card, "part_seconds": seconds}, got
+
+
 # -------------------------------------------------------------------- spmm
 def check_spmm(cases: list[dict], time_schedule: KernelSchedule = DEFAULT_SCHEDULE) -> dict:
     """Hold B8 against its plain version and a float64 host product over the
@@ -4550,6 +4846,14 @@ def main() -> None:
     train_run_, got = run_train_phase()
     torch.cuda.empty_cache()
     emit("train", seconds=time.perf_counter() - t0, launches=got, **train_run_)
+
+    # ---- dist: the sharded executor (B2 per device), mesh, dry run -------
+    t0 = time.perf_counter()
+    dist_run, got = run_dist_phase(tuner, {**pool, "hetero": extra["hetero"]})
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("dist", seconds=time.perf_counter() - t0, launches=got, **dist_run)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

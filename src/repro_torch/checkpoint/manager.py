@@ -20,6 +20,7 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.dist.sharding import place
 from repro_torch.models.param import leaf_from_numpy, leaf_to_numpy, tree_unflatten
 from repro_torch.utils.logging import get_logger
 
@@ -89,12 +90,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target_like: Any, step: int | None = None) -> tuple[Any, dict]:
+    def restore(
+        self,
+        target_like: Any,
+        step: int | None = None,
+        shardings: Any = None,
+    ) -> tuple[Any, dict]:
         """Restore into the structure of ``target_like`` (a tree of tensors),
-        each leaf in its stored dtype on the device of the matching leaf of
-        ``target_like`` — the single-device counterpart of the reference's
-        ``shardings``, which places leaves on a mesh and waits for the
-        multi-device slice. Returns (tree, the ``extra`` saved with it)."""
+        each leaf in its stored dtype. Where ``shardings`` (same structure)
+        has a leaf — a ``dist.sharding.NamedSharding`` or a ``torch.device``
+        — the leaf is placed by it (``dist.sharding.place``: on a
+        ``DeviceMesh`` a DTensor; the mesh may differ from the one that
+        saved); elsewhere it goes on the device of the matching leaf of
+        ``target_like``. Returns (tree, the ``extra`` saved with it)."""
         t0 = time.perf_counter()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -102,6 +110,7 @@ class CheckpointManager:
         path = self.dir / f"step_{step:08d}"
         manifest = json.loads((path / "manifest.json").read_text())
         flat_target = _flatten_with_paths(target_like)
+        flat_shard = _flatten_with_paths(shardings) if shardings is not None else {}
         leaves = []
         with np.load(path / "arrays.npz") as blob:
             for key, like in flat_target.items():
@@ -110,7 +119,9 @@ class CheckpointManager:
                 arr = blob[key]
                 if tuple(arr.shape) != tuple(like.shape):
                     raise ValueError(f"{key}: shape {arr.shape} != target {tuple(like.shape)}")
-                leaves.append(leaf_from_numpy(arr, manifest["leaves"][key]["dtype"],
-                                              device=like.device))
+                sharding = flat_shard.get(key)
+                leaf = leaf_from_numpy(arr, manifest["leaves"][key]["dtype"],
+                                       device="cpu" if sharding is not None else like.device)
+                leaves.append(leaf if sharding is None else place(leaf, sharding))
         log.info("restored step %d from %s (%.2fs)", step, path, time.perf_counter() - t0)
         return tree_unflatten(target_like, leaves), manifest["extra"]

@@ -3,8 +3,14 @@
 
 Runs the reduced config by default (``--full``: the published one) on one
 device, ``--device`` (default ``cuda``; the launcher raises when the card
-is absent rather than training on the CPU). The reference's
-``--production-mesh`` (256/512 devices) waits for the multi-device slice.
+is absent rather than training on the CPU), inside a ``sharding_context``
+of the 1 x 1 host mesh, where tensors stay plain and every ``hint`` is the
+identity. ``--production-mesh`` trains on ``make_production_mesh()``
+instead (256/512 ranks, one per GPU, launched with torchrun): parameters
+and optimizer state placed by ``build_sharding``, batches by
+``batch_sharding``, as DTensors; with fewer ranks the mesh raises, as the
+reference's does without 256 devices, and the dry run
+(``repro_torch.launch.dryrun``) exercises that path instead.
 ``main(argv)`` returns the ``Trainer`` (its ``history``, its checkpoint
 manager).
 """
@@ -12,13 +18,26 @@ manager).
 from __future__ import annotations
 
 import argparse
+from contextlib import nullcontext
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.dist.partition import sharding_context
+from repro_torch.dist.sharding import (
+    LocalMesh,
+    NamedSharding,
+    PartitionSpec,
+    batch_sharding,
+    build_sharding,
+    mesh_shape,
+    place,
+)
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.param import torch_dtype
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models import model_specs
+from repro_torch.models.param import torch_dtype, tree_map
 from repro_torch.optim import AdamWConfig, cosine_schedule
 from repro_torch.train import TrainConfig, Trainer, make_train_step
 from repro_torch.train.trainer import init_train_state
@@ -43,6 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--compress-frac", type=float, default=0.0)
     ap.add_argument("--dispatch-format", default=None,
                     help="MoE dispatch: ell|sell|dense (Auto-SpMV run-time knob)")
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: cuda)")
@@ -55,7 +75,9 @@ def main(argv=None):
     if args.dispatch_format and cfg.n_experts:
         cfg = cfg.replace(dispatch_format=args.dispatch_format)
     device = resolve_device(args.device)
-    log.info("arch=%s device=%s params~%.1fM", cfg.name, device,
+    mesh = (make_production_mesh(device_type=device.type) if args.production_mesh
+            else make_host_mesh(device))
+    log.info("arch=%s device=%s mesh=%s params~%.1fM", cfg.name, device, mesh_shape(mesh),
              cfg.param_counts()["total"] / 1e6)
 
     opt_cfg = AdamWConfig(
@@ -77,6 +99,7 @@ def main(argv=None):
         compress_frac=args.compress_frac,
     )
     cd = torch_dtype(cfg.compute_dtype)
+    sharded = not isinstance(mesh, LocalMesh)  # a DeviceMesh: DTensors
 
     def to_device(batch):
         out = {}
@@ -85,15 +108,28 @@ def main(argv=None):
             if k == "embeds" or k == "prefix_embeds":
                 t = t.to(cd)
             out[k] = t
+        if sharded:
+            out = tree_map(place, out, batch_sharding(mesh, out))
         return out
 
-    step_fn = make_train_step(cfg, opt_cfg, compress_frac=train_cfg.compress_frac)
-    trainer = Trainer(cfg, data_cfg, opt_cfg, train_cfg,
-                      jit_step=step_fn, to_device=to_device, device=device)
-    params, opt_state = init_train_state(
-        cfg, opt_cfg, seed=args.seed, compress_frac=train_cfg.compress_frac, device=device
-    )
-    params, opt_state = trainer.run(params, opt_state)
+    # on a DeviceMesh the model's own plain tensors (positions, masks) join
+    # DTensor ops replicated
+    if sharded:
+        from torch.distributed.tensor.experimental import implicit_replication
+    with sharding_context(mesh), implicit_replication() if sharded else nullcontext():
+        step_fn = make_train_step(cfg, opt_cfg, compress_frac=train_cfg.compress_frac)
+        trainer = Trainer(cfg, data_cfg, opt_cfg, train_cfg,
+                          jit_step=step_fn, to_device=to_device, device=device)
+        params, opt_state = init_train_state(
+            cfg, opt_cfg, seed=args.seed, compress_frac=train_cfg.compress_frac, device=device
+        )
+        if sharded:
+            param_sh = build_sharding(mesh, model_specs(cfg))
+            params = tree_map(place, params, param_sh)
+            replicated = NamedSharding(mesh, PartitionSpec())
+            opt_state = {k: tree_map(place, v, param_sh) if k in ("m", "v", "error")
+                         else place(v, replicated) for k, v in opt_state.items()}
+        params, opt_state = trainer.run(params, opt_state)
     if trainer.history:
         first, last = trainer.history[0]["loss"], trainer.history[-1]["loss"]
         log.info("done: loss %.4f -> %.4f over %d steps", first, last, len(trainer.history))

@@ -15,6 +15,8 @@ from repro_torch.models.model import (
 )
 from repro_torch.models.param import (
     ParamSpec,
+    abstract_params,
+    axes_tree,
     init_params,
     param_count,
     params_from_numpy,
@@ -30,6 +32,8 @@ __all__ = [
     "model_specs",
     "prefill",
     "ParamSpec",
+    "abstract_params",
+    "axes_tree",
     "init_params",
     "param_count",
     "params_from_numpy",

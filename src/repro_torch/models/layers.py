@@ -8,9 +8,10 @@ of S^2. It is not a kernel of the reference either (plain ``jnp`` there), so
 plain PyTorch is its port. Casts mirror the reference: norms and softmax in
 float32, RoPE in float32 and cast back, products in ``compute_dtype``.
 
-The reference pins intermediate layouts to a device mesh with
-``dist.partition.hint``; without a mesh that is the identity, so the port
-drops it until the multi-device slice.
+Intermediate layouts are pinned to a device mesh with
+``dist.partition.hint`` at the reference's sites (the masked scores, the
+kv-repeat); outside a ``sharding_context`` and on plain tensors it returns
+its argument, so one-device runs compute exactly as without it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.partition import hint, local_shards
 from repro_torch.models.param import ParamSpec, torch_dtype
 
 NEG_INF = -1e30
@@ -89,7 +91,8 @@ def flash_attention(
         # single-block path (decode, short sequences)
         scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
         m = _mask(q_pos, kv_pos, kv_valid, window=window, prefix_len=prefix_len)
-        scores = torch.where(m[:, None, :, :], scores, NEG_INF)
+        scores = hint(torch.where(m[:, None, :, :], scores, NEG_INF),
+                      ("batch", "heads", None, None))
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
         return out.to(q.dtype)
@@ -110,7 +113,7 @@ def flash_attention(
         scores = torch.einsum("bqhd,bkhd->bhqk", qf, k_c.float())
         msk = _mask(q_pos, kv_pos[:, c0 : c0 + chunk], kv_valid[:, c0 : c0 + chunk],
                     window=window, prefix_len=prefix_len)[:, None, :, :]
-        scores = torch.where(msk, scores, NEG_INF)
+        scores = hint(torch.where(msk, scores, NEG_INF), ("batch", "heads", None, None))
         m_new = torch.maximum(m_run, scores.amax(dim=-1))
         p = torch.where(msk, torch.exp(scores - m_new[..., None]), 0.0)
         alpha = torch.exp(m_run - m_new)
@@ -138,12 +141,36 @@ def attention_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _heads_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("btd,dhk->bthk", x, w)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor, heads: str) -> torch.Tensor:
+    """x @ w for w: (d, heads, dh), each rank its rows and heads."""
+    B, T, _ = x.shape
+    return local_shards(_heads_einsum, (x, ("batch", "seq", None)), (w, (None, heads, None)),
+                        out=((B, T) + tuple(w.shape[1:]), ("batch", "seq", heads, None)))
+
+
+def _out_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bthk,hkd->btd", x, w)
+
+
+def _project_out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """out @ wo for wo: (heads, dh, d): a partial sum over the heads a rank
+    holds."""
+    B, T = out.shape[:2]
+    return local_shards(_out_einsum, (out, ("batch", "seq", "heads", None)),
+                        (wo, ("heads", None, None)),
+                        out=((B, T, wo.shape[-1]), ("batch", "seq", None)))
+
+
 def qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """The projected, normed and rotated q, k, v of ``x``: (B, T, heads, dh)."""
     cd = torch_dtype(cfg.compute_dtype)
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(cd))
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(cd))
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(cd))
+    q = _project(x, params["wq"].to(cd), "heads")
+    k = _project(x, params["wk"].to(cd), "kv")
+    v = _project(x, params["wv"].to(cd), "kv")
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -151,9 +178,22 @@ def qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 
 
 def repeat_kv(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """KV heads repeated to the full head count (GQA)."""
+    """KV heads repeated to the full head count (GQA), pinned to the model
+    axis (kv alone may not divide it; the repeated dim does)."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    return torch.repeat_interleave(t, n_rep, dim=2) if n_rep > 1 else t
+    if n_rep == 1:
+        return t
+    return hint(torch.repeat_interleave(t, n_rep, dim=2), ("batch", None, "heads", None))
+
+
+def _write_cache(ck, cv, k, v, positions):
+    """Copies of the caches with this step's K/V written at ``positions``."""
+    b_idx = torch.arange(ck.shape[0], device=ck.device)[:, None]
+    pos = positions.long()
+    k_all, v_all = ck.clone(), cv.clone()
+    k_all[b_idx, pos] = k.to(k_all.dtype)
+    v_all[b_idx, pos] = v.to(v_all.dtype)
+    return k_all, v_all
 
 
 def attention(
@@ -180,30 +220,31 @@ def attention(
     else:
         # scatter this step's K/V into the cache at `positions`
         S = cache["k"].shape[1]
-        b_idx = torch.arange(B, device=x.device)[:, None]
-        pos = positions.long()
-        k_all, v_all = cache["k"].clone(), cache["v"].clone()
-        k_all[b_idx, pos] = k.to(k_all.dtype)
-        v_all[b_idx, pos] = v.to(v_all.dtype)
+        # each rank writes its rows
+        kv_axes, rows = ("batch", "kv_seq", "kv", None), ("batch", None)
+        k_all, v_all = local_shards(
+            _write_cache, (cache["k"], kv_axes), (cache["v"], kv_axes), (k, kv_axes),
+            (v, kv_axes), (positions, rows), n_out=2,
+        )
         new_cache = {"k": k_all, "v": v_all}
         kv_pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
         kv_valid = kv_pos <= positions[:, -1:]
         k_all = k_all.to(cd)
         v_all = v_all.to(cd)
 
-    out = flash_attention(
-        q,
-        repeat_kv(k_all, cfg),
-        repeat_kv(v_all, cfg),
-        q_pos=positions,
-        kv_pos=kv_pos,
-        kv_valid=kv_valid,
-        window=window,
-        prefix_len=cfg.prefix_len if cfg.prefix_lm else 0,
-        chunk=cfg.attn_chunk,
+    def attend(q, k, v, q_pos, kv_pos, kv_valid):
+        return flash_attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid, window=window,
+            prefix_len=cfg.prefix_len if cfg.prefix_lm else 0, chunk=cfg.attn_chunk,
+        )
+
+    # each rank its rows and heads
+    heads, rows = ("batch", None, "heads", None), ("batch", None)
+    out = local_shards(
+        attend, (q, heads), (repeat_kv(k_all, cfg), heads), (repeat_kv(v_all, cfg), heads),
+        (positions, rows), (kv_pos, rows), (kv_valid, rows),
     )
-    y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(cd))
-    return y, new_cache
+    return _project_out(out, params["wo"].to(cd)), new_cache
 
 
 def attention_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:

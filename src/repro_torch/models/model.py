@@ -26,6 +26,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.partition import hint, token_lookup
 from repro_torch.models.layers import (
     attention,
     attention_cache_spec,
@@ -245,7 +246,9 @@ def apply_block(
                                          cache=cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    x = x + a
+    # pinned as the group carry is (DTensor would reduce-scatter the
+    # attention's partial sums onto the sequence)
+    x = hint(x + a, ("batch", "seq", None))
     h = rmsnorm(x, params["ln2"])
     if kind == "moe":
         y, aux, counts = moe_ffn(params["moe"], h, cfg, engine=engine, name=name)
@@ -264,10 +267,10 @@ def _embed(params, cfg, tokens=None, embeds=None, prefix_embeds=None):
     if embeds is not None:
         x = embeds.to(cd)
     else:
-        x = params["embed"][tokens.long()].to(cd)
+        x = token_lookup(params["embed"], tokens).to(cd)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cd), x], dim=1)
-    return x
+    return hint(x, ("batch", "seq", None))
 
 
 def _zero_aux(cfg, device) -> dict:
@@ -284,7 +287,7 @@ def _logits(params, cfg, x):
         logits = torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype))
     else:
         logits = torch.einsum("btd,dv->btv", h, params["lm_head"].to(h.dtype))
-    logits = logits.float()
+    logits = hint(logits.float(), ("batch", None, "vocab"))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
@@ -353,6 +356,7 @@ def _run_blocks(params, cfg, x, *, positions, cache, unroll_layers, engine=None)
         for g, p_g in enumerate(_group_params(pstack, cfg.n_groups)):
             c_g = tree_map(lambda a: a[g], cstack) if cstack is not None else None
             carry, nc = block(kind, p_g, carry, c_g, f"g{pi}x{g}", checkpointed)
+            carry = (hint(carry[0], ("batch", "seq", None)),) + carry[1:]
             ncs.append(nc)
         new_cache["groups"].append(
             tree_map(lambda *a: torch.stack(a), *ncs) if cache else None

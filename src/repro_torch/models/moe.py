@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.partition import local_shards
 from repro_torch.models.param import ParamSpec, torch_dtype
 
 
@@ -108,8 +109,9 @@ def _route(params, x, cfg):
     counts.scatter_add_(1, top_e.reshape(B, -1),
                         torch.ones(top_e.reshape(B, -1).shape, device=x.device))
     frac = counts / (x.shape[1] * K)
-    aux = cfg.n_experts * torch.mean(torch.sum(frac * probs.mean(dim=1), dim=-1))
-    return top_e, top_w, counts, aux
+    # per batch row; the caller takes E * mean over rows (the reference's aux)
+    aux_rows = torch.sum(frac * probs.mean(dim=1), dim=-1)
+    return top_e, top_w, counts, aux_rows
 
 
 def _gate_full(top_e, top_w, T: int, E: int, cd) -> torch.Tensor:
@@ -163,11 +165,7 @@ def moe_ffn(
     dense reference. Requires ``dispatch_format="dense"``: ell/sell drop
     capacity-overflow tokens, which the per-expert loop does not reproduce.
     """
-    B, T, D = x.shape
     cd = torch_dtype(cfg.compute_dtype)
-    E = cfg.n_experts
-    top_e, top_w, counts, aux = _route(params, x, cfg)
-
     dispatch = cfg.dispatch_format
     if engine is not None and dispatch != "dense":
         raise ValueError(
@@ -175,6 +173,48 @@ def moe_ffn(
             f"masked per-expert path); got {dispatch!r} — override the config "
             "with .replace(dispatch_format='dense') when attaching an engine"
         )
+    # each rank routes its rows, then runs them through its slice of every
+    # expert's ffn dim (a partial sum over the ranks that split it)
+    rows = ("batch", None, None)
+    top_e, top_w, counts, aux_rows = local_shards(
+        lambda x, router: _route({"router": router}, x, cfg),
+        (x, rows), (params["router"], (None, None)), n_out=4,
+    )
+    y = local_shards(
+        lambda x, e, w, c, *ws: _routed_ffn(dict(zip(_EXPERT_W, ws)), x, e, w, c, cfg, cd,
+                                            engine, name),
+        (x, rows), (top_e, rows), (top_w, rows), (counts, ("batch", None)),
+        (params["w_gate"], ("experts", None, "ffn")), (params["w_up"], ("experts", None, "ffn")),
+        (params["w_down"], ("experts", "ffn", None)),
+    )
+    aux = cfg.n_experts * torch.mean(aux_rows)
+    if cfg.n_shared_experts:
+        sh = params["shared"]
+        if engine is None:
+            dt = torch.promote_types(x.dtype, cd)  # the reference's einsum promotion
+            xs = x.to(dt)
+            g = F.silu(torch.einsum("btd,df->btf", xs, sh["w_gate"].to(cd).to(dt)))
+            u = torch.einsum("btd,df->btf", xs, sh["w_up"].to(cd).to(dt))
+            y = y + torch.einsum("btf,fd->btd", g * u, sh["w_down"].to(cd).to(dt))
+        else:
+            g = F.silu(
+                engine.matmul(f"{name}.moe.shared.w_gate", x, sh["w_gate"].to(cd))
+            )
+            u = engine.matmul(f"{name}.moe.shared.w_up", x, sh["w_up"].to(cd))
+            y = y + engine.matmul(
+                f"{name}.moe.shared.w_down", g * u, sh["w_down"].to(cd)
+            )
+    return y.to(x.dtype), aux, counts.sum(0)
+
+
+_EXPERT_W = ("w_gate", "w_up", "w_down")
+
+
+def _routed_ffn(params, x, top_e, top_w, counts, cfg, cd, engine, name):
+    """The routed experts' output for x: (B, T, D), given its routing."""
+    B, T, D = x.shape
+    E = cfg.n_experts
+    dispatch = cfg.dispatch_format
     if engine is not None:
         gate_full = _gate_full(top_e, top_w, T, E, cd)
         xc = x.to(cd)
@@ -205,24 +245,7 @@ def moe_ffn(
         ])
     else:
         raise ValueError(f"unknown dispatch format {dispatch!r}")
-
-    if cfg.n_shared_experts:
-        sh = params["shared"]
-        if engine is None:
-            dt = torch.promote_types(x.dtype, cd)  # the reference's einsum promotion
-            xs = x.to(dt)
-            g = F.silu(torch.einsum("btd,df->btf", xs, sh["w_gate"].to(cd).to(dt)))
-            u = torch.einsum("btd,df->btf", xs, sh["w_up"].to(cd).to(dt))
-            y = y + torch.einsum("btf,fd->btd", g * u, sh["w_down"].to(cd).to(dt))
-        else:
-            g = F.silu(
-                engine.matmul(f"{name}.moe.shared.w_gate", x, sh["w_gate"].to(cd))
-            )
-            u = engine.matmul(f"{name}.moe.shared.w_up", x, sh["w_up"].to(cd))
-            y = y + engine.matmul(
-                f"{name}.moe.shared.w_down", g * u, sh["w_down"].to(cd)
-            )
-    return y.to(x.dtype), aux, counts.sum(0)
+    return y
 
 
 def select_dispatch_format(tokens_per_expert) -> str:

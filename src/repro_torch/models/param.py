@@ -5,9 +5,18 @@ leaves are tensors — the same nesting and layouts as the reference
 package's pytrees (``head``/``groups``/``tail`` tuples of dicts, group
 params stacked on a leading ``n_groups`` axis, ``wq: (d, h, dh)``,
 ``wo: (h, dh, d)``, ``w_gate: (d, f)``), so a leaf of one maps 1:1 onto a
-leaf of the other (``params_from_numpy``). The logical axes are kept for
-parity; nothing reads them until the multi-device slice
-(``abstract_params`` and ``axes_tree`` wait for it too).
+leaf of the other (``params_from_numpy``).
+
+Logical axis vocabulary (mapped to mesh axes by repro_torch.dist.sharding):
+  "vocab"    embedding rows / logits columns        -> model
+  "embed"    d_model dim of weight matrices         -> data (FSDP / ZeRO-3)
+  "heads"    fused attention-head dim               -> model
+  "kv"       kv-head dim                            -> model if divisible
+  "ffn"      feed-forward hidden                    -> model
+  "experts"  expert dim of MoE weight stacks        -> (none; expert-TP via ffn)
+  "rnn"      recurrent state width                  -> model
+  "layers"   stacked layer-group dim                -> (none)
+  None       replicated
 """
 
 from __future__ import annotations
@@ -74,6 +83,20 @@ def stack_specs(tree: Any, n: int, axis_name: str = "layers") -> Any:
     )
 
 
+def abstract_params(tree: Any, default_dtype: str) -> Any:
+    """Meta-tensor tree (shape and dtype, no storage) — what the dry run
+    places on a mesh; PyTorch's ``ShapeDtypeStruct``."""
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype or default_dtype), device="meta"),
+        tree,
+    )
+
+
+def axes_tree(tree: Any) -> Any:
+    """Logical-axes tree (same structure, tuples at leaves)."""
+    return tree_map(lambda s: s.axes, tree)
+
+
 def init_params(
     tree: Any,
     generator: torch.Generator | None,
@@ -132,8 +155,11 @@ def leaf_from_numpy(a, dtype: str | None = None, *, device) -> torch.Tensor:
 
 def leaf_to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A tensor's host copy and its dtype name; a bfloat16 tensor comes back
-    as its uint16 bits (numpy has no bfloat16 of its own)."""
+    as its uint16 bits (numpy has no bfloat16 of its own). A DTensor is
+    gathered whole first."""
     t = t.detach()
+    if hasattr(t, "full_tensor"):  # a DTensor
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
     a = t.cpu().numpy()

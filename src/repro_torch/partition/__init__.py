@@ -5,23 +5,26 @@ subsystem runs it per row block. ``partitioner`` splits the row range into
 nnz-balanced blocks (each with its own Table-2 feature vector), ``plan``
 routes every block through the format registry + predictors + cost model
 and searches block counts {1, 2, 4, 8} with a monolithic fallback, and
-``executor`` runs the winning composite plan on one device — heterogeneous
-per-block CUDA kernels, or every block fused into ONE launch
-(``compile_fused_partitioned``).
+``executor`` runs the winning composite plan — heterogeneous per-block CUDA
+kernels on one device, every block fused into ONE launch
+(``compile_fused_partitioned``), or one block per device over a mesh
+``data`` axis through the ELL carrier (``shard_partitioned``: X copied to
+every device, Y shards local).
 
 Session/cache/serving integration lives in ``repro_torch.core.session``
 (``partitioned_optimize``), ``repro_torch.core.cache`` (per-block plan
 entries), and ``repro_torch.train.serve`` / ``repro_torch.launch.serve``
-(``--partition``). The multi-device executor (``ShardedPartitionedSpmv``,
-``shard_partitioned``) belongs to a later slice of the port.
+(``--partition``).
 """
 
 from repro_torch.partition.executor import (
     BlockKernel,
     FusedPartitionedSpmv,
     PartitionedSpmv,
+    ShardedPartitionedSpmv,
     compile_fused_partitioned,
     compile_partitioned,
+    shard_partitioned,
 )
 from repro_torch.partition.partitioner import (
     SUPPORTED_BLOCK_COUNTS,
@@ -46,10 +49,12 @@ __all__ = [
     "RowBlock",
     "RowPartition",
     "SUPPORTED_BLOCK_COUNTS",
+    "ShardedPartitionedSpmv",
     "compile_fused_partitioned",
     "compile_partitioned",
     "partition_rows",
     "plan_for_partition",
     "plan_partitioned",
     "route_block",
+    "shard_partitioned",
 ]

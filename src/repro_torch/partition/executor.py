@@ -1,4 +1,4 @@
-"""Composite execution of a partitioned plan on one device.
+"""Composite execution of a partitioned plan.
 
 * ``PartitionedSpmv`` — each block's format-specific CUDA kernel (compiled
   through the ``FormatSpec`` registry and the process-wide kernel memo,
@@ -9,8 +9,17 @@
 * ``FusedPartitionedSpmv`` — the same composite lowered to one flat stream
   and run as ONE launch of the fused kernel (``repro_torch.kernels.fused``).
 
-The multi-device executor (one row block per card) belongs to a later slice
-of the port; this module has no ``ShardedPartitionedSpmv``.
+* ``ShardedPartitionedSpmv`` — multi device. Row blocks map one-per-device
+  onto a local mesh's ``data`` axis (``dist.sharding.spmv_mesh``). The
+  reference runs one SPMD program on every device, so it executes through a
+  homogeneous *carrier* format (ELL planes, padded to a common per-block
+  geometry and stacked on a leading "blocks" axis); the port keeps that
+  carrier and runs the ELL kernel (B2, ``kernels/ell.py: ell_spmv``) on
+  each device, on that device's current stream. The nnz-balanced partition
+  is what keeps the per-device work even. Placement follows
+  ``repro_torch.dist.sharding.SPMV_RULES``: the blocks axis shards over
+  ``data``, X is copied (replicated) to every device, and each Y shard
+  stays on the device that computed it.
 """
 
 from __future__ import annotations
@@ -22,12 +31,19 @@ from typing import Hashable
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import SPMV_RULES, spec_for as sharding_spec, spmv_mesh
+from repro_torch.kernels.common import DEFAULT_SCHEDULE, KernelSchedule, ceil_to, pad_axis
+from repro_torch.kernels.ell import ell_spmv
 from repro_torch.kernels.ops import PreparedSpmv, compile_spmv_block
 from repro_torch.obs.trace import span as _span
+from repro_torch.partition.partitioner import RowPartition
 from repro_torch.partition.plan import CompositePlan
+from repro_torch.sparse.registry import get_format
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("partition.executor")
+
+CARRIER_FORMAT = "ell"  # dense-plane storage: stackable + shardable
 
 
 def _wait(device: torch.device) -> None:
@@ -233,3 +249,118 @@ def compile_fused_partitioned(
         "+".join(fused.formats),
     )
     return fused
+
+
+class ShardedPartitionedSpmv:
+    """Multi-device composite SpMV (one row block per mesh device).
+
+    ``sharded_call`` returns the per-block ``(1, padded_rows)`` outputs, each
+    still on the device that computed it (callers composing further work on
+    the devices should stay in this form); ``__call__`` gathers the valid
+    rows to the host and concatenates them into an ``(n_rows,)`` array.
+    """
+
+    def __init__(
+        self,
+        dense: np.ndarray,
+        partition: RowPartition,
+        *,
+        schedule: KernelSchedule = DEFAULT_SCHEDULE,
+        mesh=None,
+        device: str | torch.device | None = None,
+    ):
+        dense = np.asarray(dense)
+        self.partition = partition
+        self.schedule = schedule
+        self.mesh = mesh if mesh is not None else spmv_mesh(partition.n_blocks, device)
+        axis_size = self.mesh.shape["data"]
+        if partition.n_blocks != axis_size:
+            raise ValueError(
+                f"partition has {partition.n_blocks} blocks but the mesh "
+                f"data axis has {axis_size} devices; partition with "
+                f"n_blocks == mesh extent (spmv_mesh(n_blocks))"
+            )
+
+        # homogeneous ELL carrier: per-block planes padded to one geometry
+        spec = get_format(CARRIER_FORMAT)
+        mats = [
+            spec.prepare(dense[b.row_start : b.row_end], schedule, device="cpu")
+            for b in partition.blocks
+        ]
+        R = max(int(m.data.shape[0]) for m in mats)
+        W = max(int(m.data.shape[1]) for m in mats)
+        R, W = ceil_to(R, schedule.rows_per_block), ceil_to(W, schedule.nnz_tile)
+        data = np.stack([pad_axis(pad_axis(m.data.numpy(), 0, R), 1, W) for m in mats])
+        cols = np.stack([pad_axis(pad_axis(m.cols.numpy(), 0, R), 1, W) for m in mats])
+
+        # dist.sharding rules: blocks axis -> data; X replicated; Y local
+        plane_spec = sharding_spec(self.mesh, data.shape, ("blocks", None, None), SPMV_RULES)
+        x_spec = sharding_spec(self.mesh, (partition.n_cols,), (None,), SPMV_RULES)
+        if tuple(plane_spec) != ("data",) or tuple(x_spec):
+            raise ValueError(f"SPMV_RULES gave planes {plane_spec}, x {x_spec} on {self.mesh}")
+        # block b's planes on mesh device b
+        self.devices = list(self.mesh.devices)
+        self.data = [torch.from_numpy(data[b]).to(d) for b, d in enumerate(self.devices)]
+        self.cols = [torch.from_numpy(cols[b]).to(d) for b, d in enumerate(self.devices)]
+        self.padded_rows = R
+
+    @property
+    def n_blocks(self) -> int:
+        return self.partition.n_blocks
+
+    def sharded_call(self, x) -> list[torch.Tensor]:
+        """Launch B2 on every device of the mesh, each on its current
+        stream; block b's ``(1, R)`` output stays on device b."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        copies = {d: x.to(d).contiguous() for d in dict.fromkeys(self.devices)}
+        with _span("kernel.execute", mode="sharded", n_blocks=self.n_blocks):
+            return [
+                ell_spmv(d, c, copies[dev], self.schedule)[None, :]
+                for d, c, dev in zip(self.data, self.cols, self.devices)
+            ]
+
+    def __call__(self, x) -> np.ndarray:
+        y = self.sharded_call(x)  # gathers shards to host
+        return np.concatenate(
+            [y[b.index][0, : b.n_rows].cpu().numpy() for b in self.partition.blocks]
+        )
+
+
+def shard_partitioned(
+    dense: np.ndarray,
+    plan_or_partition: CompositePlan | RowPartition,
+    *,
+    schedule: KernelSchedule | None = None,
+    mesh=None,
+    device: str | torch.device | None = None,
+) -> ShardedPartitionedSpmv:
+    """Build the multi-device executor from a plan or a bare partition.
+
+    From a ``CompositePlan`` the (uniform) carrier schedule defaults to the
+    first block's predicted schedule — per-block *formats* do not transfer to
+    the multi-device path (one carrier on every device), only the
+    nnz-balanced row map. When the mesh (default: ``spmv_mesh`` over the
+    partition's blocks on ``device``) has a different extent than the
+    partition, the rows are re-partitioned to one block per device.
+    """
+    if isinstance(plan_or_partition, CompositePlan):
+        partition = plan_or_partition.partition
+        if schedule is None:
+            schedule = plan_or_partition.blocks[0].schedule
+    else:
+        partition = plan_or_partition
+    from repro_torch.partition.partitioner import partition_rows
+
+    if mesh is None:
+        mesh = spmv_mesh(partition.n_blocks, device)
+    extent = mesh.shape["data"]
+    if partition.n_blocks != extent:
+        log.info(
+            "re-partitioning %d block(s) -> %d device(s) for the SPMD path",
+            partition.n_blocks,
+            extent,
+        )
+        partition = partition_rows(dense, extent)
+    return ShardedPartitionedSpmv(
+        dense, partition, schedule=schedule or DEFAULT_SCHEDULE, mesh=mesh
+    )

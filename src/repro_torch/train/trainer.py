@@ -28,11 +28,11 @@ from typing import Callable
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLMDataset
+from repro_torch.dist.partition import token_nll
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import forward, init_params, model_specs
 from repro_torch.models.param import tree_leaves, tree_unflatten
@@ -59,8 +59,7 @@ def make_loss_fn(cfg: ModelConfig, *, aux_weight: float = 0.01, unroll_layers: b
         labels = batch["labels"]
         T = labels.shape[1]
         logits = logits[:, -T:]  # drop prefix positions (vlm)
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        nll = token_nll(logits, labels)
         mask = batch.get("loss_mask")
         if mask is not None:
             nll = torch.where(mask.bool(), nll, 0.0)

@@ -134,3 +134,65 @@ def test_params_to_numpy_is_the_inverse_of_params_from_numpy():
     back = params_to_numpy(tree)
     assert back["b"][0].dtype == ml_dtypes.bfloat16 and back["b"][1].dtype == np.int32
     _assert_trees_equal(params_from_numpy(back, "cpu"), tree)
+
+
+def test_restore_places_leaves_by_shardings(tmp_path):
+    """``shardings=``: a leaf with a ``torch.device`` or a ``NamedSharding``
+    over a local mesh goes there, the same bits; ``None`` leaves (and
+    leaves the tree lacks) follow ``target_like``."""
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mgr = CheckpointManager(tmp_path)
+    tree = _tree()
+    mgr.save(1, tree)
+    host = NamedSharding(make_host_mesh("cpu"), PartitionSpec())
+    shardings = {"a": torch.device("cpu"), "b": [host, None], "c": ({"w": host}, ())}
+    restored, _ = mgr.restore(tree, shardings=shardings)
+    _assert_trees_equal(restored, tree)
+    partial, _ = mgr.restore(tree, shardings={"a": "cpu"})
+    _assert_trees_equal(partial, tree)
+    # the reference keeps the same signature
+    import inspect
+
+    assert list(inspect.signature(RefCheckpointManager.restore).parameters) == list(
+        inspect.signature(CheckpointManager.restore).parameters)
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A 1-rank gloo process group over a ``HashStore`` and a (1, 1)
+    ``("data", "model")`` DeviceMesh on it, destroyed after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_onto_a_device_mesh_gives_dtensors_of_the_same_bits(tmp_path, one_rank_mesh):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import build_sharding, place
+    from repro_torch.models import init_params, model_specs
+
+    cfg = get_config("qwen3-0.6b", reduced_config=True)
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0), "float32", "cpu")
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, params)
+    sh = build_sharding(one_rank_mesh, model_specs(cfg))
+    restored, _ = mgr.restore(params, shardings=sh)
+    leaves = _flatten_with_paths(restored)
+    assert all(isinstance(t, DTensor) and t.device_mesh is one_rank_mesh for t in leaves.values())
+    _assert_trees_equal({k: t.full_tensor() for k, t in leaves.items()},
+                        _flatten_with_paths(params))
+    # a DTensor tree saves whole (gathered) and restores as plain tensors
+    mgr.save(4, restored)
+    plain, _ = mgr.restore(params, step=4)
+    _assert_trees_equal(plain, params)
+    w = params["embed"]
+    assert torch.equal(place(w, sh["embed"]).full_tensor(), w)

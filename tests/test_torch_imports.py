@@ -41,6 +41,12 @@ TRAIN_MODULES = (
     "repro_torch.data.pipeline", "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
     "repro_torch.train.trainer", "repro_torch.launch.train",
 )
+# modules of the multi-device slice
+DIST_MODULES = (
+    "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.partition",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.launch.hlo_analysis",
+    "repro_torch.launch.dryrun",
+)
 # modules of the predictor zoo
 ZOO_MODULES = (
     "repro_torch.ml.centroid", "repro_torch.ml.svm", "repro_torch.ml.boosting",
@@ -52,7 +58,7 @@ def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
     assert set(LM_MODULES) <= set(mods) and set(ZOO_MODULES) <= set(mods)
-    assert set(TRAIN_MODULES) <= set(mods)
+    assert set(TRAIN_MODULES) <= set(mods) and set(DIST_MODULES) <= set(mods)
     assert len([m for m in mods if m.startswith("repro_torch.configs.")]) == 12
     code = (
         "import importlib, sys\n"
@@ -89,7 +95,7 @@ def test_no_source_file_imports_jax_or_the_reference_package(path):
 # names only the port exports)
 EXPORTS = {
     "configs": (set(), set()),
-    "models": ({"abstract_params", "axes_tree"}, {"init_cache", "params_from_numpy"}),
+    "models": (set(), {"init_cache", "params_from_numpy"}),
     "optim": (set(), {"magnitude_prune"}),
     "train": (set(), {"SpmvRequest", "SpmvServer"}),
     "data": (set(), set()),
@@ -98,6 +104,8 @@ EXPORTS = {
     "telemetry": (set(), set()),
     "obs": (set(), set()),
     "ml": (set(), set()),
+    "dist": (set(), set()),
+    "partition": (set(), set()),
 }
 
 

@@ -369,12 +369,24 @@ def test_serve_and_observe_partitioned_without_and_with_telemetry():
 
 
 def test_sharded_executor_belongs_to_a_later_slice():
-    import repro_torch.partition as part
+    """The multi-device executor, ported: on a one-device mesh (the
+    reference's single CPU device, the port's ``spmv_mesh(1, "cpu")``) both
+    re-cut a 4-block partition to one block and build the same ELL carrier;
+    ``y`` agrees. Four-entry meshes: tests/test_torch_sharded_partition.py."""
+    from repro.partition import shard_partitioned as ref_shard_partitioned
+    from repro_torch.dist.sharding import spmv_mesh
+    from repro_torch.partition import ShardedPartitionedSpmv, shard_partitioned
 
-    for name in ("ShardedPartitionedSpmv", "shard_partitioned"):
-        assert not hasattr(part, name)  # no silent stand-in
-        with pytest.raises(ImportError):
-            exec(f"from repro_torch.partition import {name}", {})
+    dense = hetero_matrix(256)
+    x = _x(dense.shape[1], seed=4)
+    ours = shard_partitioned(dense, partition_rows(dense, 4), mesh=spmv_mesh(1, "cpu"))
+    ref = ref_shard_partitioned(dense, ref_partition(dense, 4))
+    assert isinstance(ours, ShardedPartitionedSpmv)
+    assert ours.n_blocks == ref.n_blocks == 1 and ours.padded_rows == ref.padded_rows
+    _assert_same_partition(ours.partition, ref.partition)
+    np.testing.assert_array_equal(ours.data[0].numpy(), np.asarray(ref.data)[0])
+    np.testing.assert_array_equal(ours.cols[0].numpy(), np.asarray(ref.cols)[0])
+    assert_scaled_close(ours(x), np.asarray(ref(x)), 1e-4)
 
 
 # --------------------------------------------------------------- server + CLI

@@ -1,7 +1,8 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU, as tests/test_launch_clis.py drives the reference's: reduced configs,
-loss finite, the checkpoint written; its flags are the reference's minus
-``--production-mesh`` (the multi-device slice) plus ``--device``."""
+loss finite, the checkpoint written; its flags are the reference's plus
+``--device``. ``--production-mesh`` raises the mesh's error without 256
+ranks, and trains under a fake 256-rank process group."""
 
 import numpy as np
 import pytest
@@ -17,11 +18,50 @@ def _flags(parser):
 
 def test_flags_are_the_references_minus_the_mesh_plus_device():
     ref, port = _flags(ref_train.build_argparser()), _flags(launch_train.build_argparser())
-    assert port == (ref - {"--production-mesh"}) | {"--device"}
+    assert port == ref | {"--device"} and "--production-mesh" in port
     ref_defaults = vars(ref_train.build_argparser().parse_args(["--arch", "qwen3-0.6b"]))
     port_defaults = vars(launch_train.build_argparser().parse_args(["--arch", "qwen3-0.6b"]))
-    assert port_defaults.pop("device") is None and ref_defaults.pop("production_mesh") is False
+    assert port_defaults.pop("device") is None and port_defaults["production_mesh"] is False
     assert port_defaults == ref_defaults
+
+
+def test_production_mesh_raises_the_mesh_error_without_256_ranks(tmp_path):
+    """As the reference's CLI raises on a machine without 256 devices."""
+    with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 ranks, found 0"):
+        train_main(["--arch", "qwen3-0.6b", "--device", "cpu", "--production-mesh",
+                    "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())  # it raised before any step or checkpoint
+
+
+def test_production_mesh_trains_under_a_fake_process_group(tmp_path):
+    """The whole --production-mesh path on the CPU: a fake 256-rank group
+    (collectives move nothing, so the numbers are not a fleet's), the 16 x
+    16 mesh, parameters, moments and batches as DTensors placed by the
+    rules, two steps under the sharding context, a checkpoint gathered
+    whole. Run in a subprocess, which owns the process group."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent(f"""
+        from repro_torch.launch.dryrun import fake_process_group
+        from repro_torch.launch.train import main
+        with fake_process_group(256):
+            tr = main(["--arch", "qwen3-0.6b", "--device", "cpu", "--production-mesh",
+                       "--steps", "2", "--seq-len", "32", "--batch", "16",
+                       "--ckpt-dir", {str(tmp_path)!r}, "--ckpt-every", "2"])
+            print(len(tr.history), tr.ckpt.latest_step())
+    """)
+    import os
+    import pathlib
+
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "PYTHONPATH": str(pathlib.Path(__file__).resolve().parents[1] / "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-2:] == ["2", "2"]
+    assert "mesh={'data': 16, 'model': 16}" in r.stderr
 
 
 def test_train_cli_runs_and_improves(tmp_path):
