@@ -318,14 +318,47 @@ no network. Phases, each printing one JSON object on a line of its own:
                 extrapolated FLOPs and bytes, collectives by kind and the
                 roofline terms (counted from fake tensors and data-sheet
                 constants, not timed). A cell that fails fails the run.
+17. ``tuner``   the tuner learns the card. (a) B1's ``x_residency`` is the
+                SM's L1 / shared-memory split: "vmem" (the least shared
+                memory that keeps B1's CTAs per SM), "stream" (the most),
+                forced to the least shared memory and to the driver's own
+                choice, in turns at ``human_gene2`` and ``webgraph`` (CUDA
+                events, L2 flushed; the same bits in all four), with the
+                carveout each launch asked for. (b) The card's dataset
+                (``collect_dataset(measure=True)`` over ``CardSpace``: one
+                point per distinct launch): the whole card space, every
+                format, on the pool's six matrices, the card's 112 CSR
+                points on the paper's next presets cut to n ~ 14,000;
+                every point timed through its kernel (CUDA events, L2
+                flushed), the storage converted once per geometry, each
+                point's ``y`` held against its kernel's plain version (a
+                bf16 point beyond 3e-2 is refused and listed, an fp32 one
+                beyond 1e-4 fails the run), launches equal to the timed
+                calls; the points, conversions, spread and wall seconds.
+                The dataset is saved and loaded back. ``measure_formats``
+                on ``rim`` launches each admitted format's kernel warmup +
+                reps times (no plain version on the card). (c) Per matrix the
+                default schedule's time, the measured best (ties within
+                the spread go to the default), the cost-model tuner's pick
+                and a ``decision_tree`` predictor's pick fitted leaving the
+                matrix out; per-knob accuracy and the ratios. (d) A tuner
+                fitted on the dataset (``AutoSpmvPredictor.fit`` ->
+                ``AutoSpMV`` -> ``AutoSpmvSession``) serves ``human_gene2``
+                and ``webgraph`` in compile-time mode: B1 launches equal the
+                requests, y against float64; B1 at its schedule against
+                phase 1's, in turns. (e) Run-time mode over the pool with
+                it: formats against the cost-model tuner's, each §5.3
+                decision with its gain and overhead in seconds.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-16 (each path of phases
-11-16 on its own) and read just after each:
+Launch counters are set to 0 just before phases 4-17 (each path of phases
+11-17 on its own; phase 17's dataset timing is checked against its calls
+and, as measurement, not added to the kernels line) and read just after
+each:
 a kernel of the path that was launched no time fails the run (phase 15's
 path launches none, and any launch there fails it). Then come the
 ``kernels`` line (phase 3's numbers with the main path's launch counts; the
@@ -360,6 +393,7 @@ import time
 import urllib.request
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -379,11 +413,24 @@ from repro_torch.core.features import (  # noqa: E402
     features_from_assignment_histogram,
 )
 from repro_torch.core.autotuner import AutoSpMV  # noqa: E402
-from repro_torch.core.dataset import collect_dataset  # noqa: E402
+from repro_torch.core.dataset import TuningDataset, collect_dataset, is_measured  # noqa: E402
 from repro_torch.core.hpo import tune_model  # noqa: E402
-from repro_torch.core.objectives import CalibratedCostModel, ObjectiveValues  # noqa: E402
+from repro_torch.core.objectives import (  # noqa: E402
+    CalibratedCostModel,
+    ObjectiveValues,
+    measure_formats,
+)
 from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig, _config_row  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
+from repro_torch.core.tuning_space import (  # noqa: E402
+    ALL_KNOBS,
+    CARD_KNOBS,
+    KNOBS,
+    CardSpace,
+    TuningConfig,
+    card_compile_time_space,
+    space_size,
+)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bcsr import bcsr_spmv, bcsr_spmv_plain  # noqa: E402
 from repro_torch.kernels.bell import (  # noqa: E402
@@ -720,6 +767,14 @@ COMPRESS_FRAC, COMPRESS_STEPS = 0.1, 3
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_LR = 5, (4, 256), 3e-3
 RG_TRAIN_STEPS, RG_TRAIN_BATCH = 3, (4, 256)
 H100_BF16_FLOPS = 989e12  # dense bf16 peak, H100 SXM data sheet (at 700 W)
+# phase 17 (tuner): the card's dataset. The whole card space (every format)
+# on the pool, the card's CSR space on the presets below (the paper's
+# first presets beside the pool, cut to N_TARGET rows); CUDA-event
+# repetitions per point; requests per matrix served with the card-fitted
+# tuner; regressor records of each leave-one-out predictor
+TUNER_CSR_PRESETS = tuple(n for n in MATRIX_NAMES if n not in POOL)[:10]
+TUNER_REPS, TUNER_SERVE, TUNER_LOO_SAMPLES = 8, 4, 150
+TUNER_CARVE_ROUNDS = 2  # in-turns rounds of B1's carveout arms
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -4477,6 +4532,377 @@ def run_observed_phase(tuner, pool, part_pool, part_cache=None) -> tuple[dict, d
 
 
 # -------------------------------------------------------------------- main
+# ------------------------------------------------------------------- tuner
+def card_point_check(errs: dict):
+    """``collect_dataset``'s ``on_point``: each timed point's ``y`` (its last
+    call) against the kernel's plain version on the same storage, on the
+    card; the worst scaled error per format and accumulator kept in
+    ``errs``. A float32 point beyond 1e-4, or any non-finite ``y``, fails
+    the run. A bfloat16 point beyond 3e-2 is refused (infeasible in the
+    dataset, so the tuner never serves it) and listed: the kernel's bf16
+    running sums over long rows (B3 at C >= 256 takes P <= 2 threads a
+    row) leave its rounding order, not the plain version's."""
+    def check(name, cfg, kernel, x, y):
+        ref = kernel_calls(cfg.fmt, kernel.mat, x, cfg.schedule)[1]()
+        n = kernel.mat.shape[0]
+        ref, got = ref.reshape(-1)[:n], y.reshape(-1)[:n]
+        err = float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
+        tol = tol_of(cfg.schedule)
+        at = f"{name}/{sched_tag(cfg.schedule)}_{cfg.schedule.x_residency}"
+        row = errs.setdefault(f"{cfg.fmt}_{cfg.schedule.accum_dtype}",
+                              {"points": 0, "worst": 0.0, "worst_at": None, "tol": tol,
+                               "refused": []})
+        row["points"] += 1
+        if err >= row["worst"]:
+            row.update(worst=err, worst_at=at)
+        fp32 = cfg.schedule.accum_dtype == "float32"
+        if not bool(torch.isfinite(got).all()) or (fp32 and err > tol):
+            raise AssertionError(f"tuner: {at} ({cfg.fmt}) y off its plain version: "
+                                 f"{err:.3e} > {tol:.0e}")
+        if err > tol:
+            row["refused"].append([at, err])
+            return False
+        return True
+    return check
+
+
+def tuner_presets(shapes: dict):
+    """The paper's presets beside the pool, each cut to ``N_TARGET`` rows,
+    generated as the collection reads them; their shapes and nonzeros kept
+    in ``shapes`` (B1's launch reads no more)."""
+    for name in TUNER_CSR_PRESETS:
+        dense = generate_by_name(name, scale=N_TARGET / SUITE[name].n)
+        shapes[name] = SimpleNamespace(n_rows=dense.shape[0], n_cols=dense.shape[1],
+                                       nnz=int(np.count_nonzero(dense)))
+        yield name, dense
+
+
+def measured_at(ds, matrix: str, cfg) -> float:
+    """Measured seconds of the record of ``cfg`` (a point of the card's space)."""
+    for r in ds.for_matrix(matrix):
+        if is_measured(r) and r.config == cfg:
+            return r.latency
+    raise AssertionError(f"tuner: no measured record of {cfg} for {matrix}")
+
+
+def tuner_dataset(pool: dict, shapes: dict) -> tuple:
+    """17(b): the card's dataset. The whole card space (every format) on the
+    pool, the card's CSR space on ``TUNER_CSR_PRESETS``; every point timed
+    through its kernel and its ``y`` held against its plain version.
+    Launches must equal the timed calls; ``measure_formats`` on ``rim``
+    must launch each admitted format's kernel warmup + reps times. Returns
+    (dataset loaded back from its file, report)."""
+    errs = {}
+    n_sms = sm_count(DEVICE)
+    common = dict(measure=True, measure_reps=TUNER_REPS, device=DEVICE,
+                  on_point=card_point_check(errs))
+    reset_launches()
+    t0 = time.perf_counter()
+    runtime = collect_dataset(matrices=pool, space=CardSpace(n_sms=n_sms), **common)
+    csr_only = collect_dataset(matrices=tuner_presets(shapes),
+                               space=card_compile_time_space(n_sms), **common)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = read_launches()
+    calls = {k: runtime.meta["calls"].get(k, 0) + csr_only.meta["calls"].get(k, 0)
+             for k in WRAPPERS}
+    check_launches("tuner(dataset)", got, calls)
+    for n, d in pool.items():
+        shapes[n] = SimpleNamespace(n_rows=d.shape[0], n_cols=d.shape[1],
+                                    nnz=int(np.count_nonzero(d)))
+    ds = TuningDataset(runtime.records + csr_only.records,
+                       {**runtime.meta, "spread": {**runtime.meta["spread"],
+                                                   **csr_only.meta["spread"]}})
+    path = Path(HERE) / "build" / "tuner" / "card_dataset.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ds.save(path)
+    ds = TuningDataset.load(path)
+    # measure_formats, the reference's per-format protocol, times the kernels
+    # on the card: warmup + reps launches per format its guard admits
+    reset_launches()
+    t0 = time.perf_counter()
+    per_format = measure_formats(pool["rim"], reps=3, warmup=1, device=DEVICE)
+    torch.cuda.synchronize()
+    got_mf = read_launches()
+    check_launches("tuner(measure_formats)", got_mf, {
+        **{k: 0 for k in WRAPPERS},
+        **{f: 4 for f, t in per_format.items() if np.isfinite(t)}})
+    measured = [r for r in ds.records if is_measured(r)]
+    secs = {k: runtime.meta["seconds"][k] + csr_only.meta["seconds"][k]
+            for k in runtime.meta["seconds"]}
+    per_fmt = {}
+    for r in measured:
+        per_fmt[r.config.fmt] = per_fmt.get(r.config.fmt, 0) + 1
+    report = {
+        "matrices": {"runtime_space": list(pool), "csr_space": list(TUNER_CSR_PRESETS)},
+        "points": len(measured), "points_by_format": per_fmt,
+        "distinct_launches": len({(r.matrix, r.config) for r in measured}),
+        "infeasible_points": sum(not r.feasible for r in measured),
+        "reference_space_points": space_size(),
+        "csr_points_per_matrix": len(card_compile_time_space(n_sms).points(
+            shapes[next(iter(pool))])),
+        "conversions": {**runtime.meta["conversions"], **csr_only.meta["conversions"]},
+        "reps": TUNER_REPS, "calls": calls, "launches": got, "seconds": secs, "wall_s": wall,
+        "spread": ds.meta["spread"], "y_vs_plain": errs, "file_bytes": path.stat().st_size,
+        "measure_formats": {"matrix": "rim", "ms": {f: 1e3 * t for f, t in per_format.items()},
+                            "launches": got_mf, "seconds": time.perf_counter() - t0}}
+    return ds, report
+
+
+def tuner_labels(ds, model_tuner, shapes: dict) -> dict:
+    """17(c): per matrix the default schedule's measured time, the measured
+    best (ties within the spread to the default), the cost-model tuner's
+    pick and a ``decision_tree`` predictor's pick fitted leaving the matrix
+    out, each at its point of the card's CSR space; per-knob accuracy and
+    the ratios between them."""
+    csr_space = card_compile_time_space(sm_count(DEVICE))
+    default = TuningConfig("csr", DEFAULT_SCHEDULE)
+    rows, hits = [], {k: 0 for k in ALL_KNOBS}
+    for m in ds.matrices:
+        feats = ds.for_matrix(m)[0].features
+        best = ds.best_record(m, "latency", formats=("csr",))
+        t0 = time.perf_counter()
+        held = TuningDataset([r for r in ds.records if r.matrix != m], ds.meta)
+        pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=TUNER_LOO_SAMPLES,
+                                                 device=DEVICE)).fit(held)
+        fit_s = time.perf_counter() - t0
+        picked = csr_space.point_of(shapes[m], TuningConfig(
+            "csr", pred.predict_schedule(feats, "latency")))
+        model = csr_space.point_of(shapes[m], TuningConfig(
+            "csr", model_tuner.plan_compile_time(feats, "latency").schedule))
+        t_def, t_best = measured_at(ds, m, default), best.latency
+        t_pred, t_model = measured_at(ds, m, picked), measured_at(ds, m, model)
+        for knob in ALL_KNOBS:
+            field_ = KNOBS[knob][0]
+            hits[knob] += getattr(picked.schedule, field_) == getattr(best.config.schedule, field_)
+        rows.append({"matrix": m, "default_ms": 1e3 * t_def, "best_ms": 1e3 * t_best,
+                     "best": sched_tag(best.config.schedule) + "_" + best.config.schedule.x_residency,
+                     "loo_ms": 1e3 * t_pred,
+                     "loo": sched_tag(picked.schedule) + "_" + picked.schedule.x_residency,
+                     "model_ms": 1e3 * t_model,
+                     "model": sched_tag(model.schedule) + "_" + model.schedule.x_residency,
+                     "spread": ds.meta["spread"][m],
+                     "beyond_spread": t_def > t_best * (1.0 + ds.meta["spread"][m]),
+                     "fit_s": fit_s})
+    def ratios(num, den):
+        r = np.array([row[num] / row[den] for row in rows])
+        return {"geomean": float(np.exp(np.log(r).mean())), "max": float(r.max())}
+    return {"matrices": rows, "knob_accuracy": {k: hits[k] / len(rows) for k in ALL_KNOBS},
+            "card_knobs": list(CARD_KNOBS),
+            "default_over_best": ratios("default_ms", "best_ms"),
+            "default_over_loo": ratios("default_ms", "loo_ms"),
+            "loo_over_best": ratios("loo_ms", "best_ms"),
+            "model_over_best": ratios("model_ms", "best_ms"),
+            "default_over_model": ratios("default_ms", "model_ms"),
+            "beyond_spread": sum(r["beyond_spread"] for r in rows),
+            "best_bf16": sum(r["best"].endswith(("bf16_vmem", "bf16_stream")) for r in rows),
+            "best_stream": sum(r["best"].endswith("_stream") for r in rows)}
+
+
+def b1_in_turns(mat, x: torch.Tensor, before: KernelSchedule, after: KernelSchedule,
+                rounds: int = 2) -> dict:
+    """B1 (the wrapper) at two schedules on one CSR, in turns (before,
+    after, after, before), CUDA events, L2 flushed."""
+    args = (mat.data, mat.indices, mat.indptr, x)
+    got = {"before": [], "after": []}
+    for _ in range(rounds):
+        for which in ("before", "after", "after", "before"):
+            s = before if which == "before" else after
+            got[which].append(timed(lambda: csr_spmv(*args, s)))
+    return {"before": sched_tag(before) + "_" + before.x_residency,
+            "after": sched_tag(after) + "_" + after.x_residency,
+            "before_ms": float(np.median(got["before"])),
+            "after_ms": float(np.median(got["after"])), "runs_ms": got}
+
+
+def b1_carveout() -> dict:
+    """The carveout each B1 instance asked of the driver last (percent of the
+    SM's shared memory; -1: the driver's own choice, or never launched):
+    rows-only and chunk kernels, per accumulator and unroll."""
+    out = {}
+    fn = kbuild.bind("spmv_csr", "spmv_csr_carveout",
+                     [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    for kind, kname in ((0, "rows"), (1, "chunk")):
+        for acc in (0, 1):
+            for u in B1_UNROLLS:
+                v = ctypes.c_int(-1)
+                kbuild.check_launch(fn(kind, acc, u, ctypes.byref(v)), "spmv_csr_carveout")
+                out[f"{kname}_{'bf16' if acc else 'f32'}_{u}"] = v.value
+    return out
+
+
+def force_carveout(pct: int) -> None:
+    """Make every B1 launch ask for carveout ``pct`` (-1: the driver's own
+    choice; -2: the schedule's again), for measurement."""
+    fn = kbuild.bind("spmv_csr", "spmv_csr_force_carveout", [ctypes.c_int])
+    kbuild.check_launch(fn(pct), "spmv_csr_force_carveout")
+
+
+def tuner_carveout(pool: dict, web: np.ndarray, csr_schedule, web_schedule) -> dict:
+    """17(a): B1's x_residency, the SM's L1 / shared split, at
+    ``human_gene2`` and ``webgraph`` at phase 1's schedules and at unroll
+    8 / 1 in fp32: "vmem" (the least shared memory that keeps B1's CTAs
+    per SM), "stream" (the most), and forced to the least shared memory
+    (0 %) and to the driver's own choice (no preference, as B1 launched
+    before the knob), in turns (CUDA events, L2 flushed); y the same bits
+    in all four; the carveout each asked for."""
+    rng = np.random.default_rng(SEED + 170)
+    arms = (("driver", -1, "vmem"), ("vmem", -2, "vmem"), ("stream", -2, "stream"),
+            ("least_shared", 0, "vmem"))
+    rows = []
+    for name, dense, scheds in (
+            ("human_gene2", pool["human_gene2"],
+             (csr_schedule, KernelSchedule(rows_per_block=8, unroll=8), DEFAULT_SCHEDULE)),
+            (f"webgraph@{web.shape[0]}", web, (web_schedule, DEFAULT_SCHEDULE))):
+        mat = prepare(dense, "csr", DEFAULT_SCHEDULE, device=DEVICE)
+        x = torch.as_tensor(rng.normal(size=dense.shape[1]).astype(np.float32), device=DEVICE)
+        args = (mat.data, mat.indices, mat.indptr, x)
+        for s in scheds:
+            plan = csr_launch_plan(dense.shape[0], mat.nnz, s.rows_per_block, s.unroll,
+                                   sm_count(DEVICE), n_cols=dense.shape[1])
+            instance = (f"{'chunk' if plan['hub_ctas'] else 'rows'}_"
+                        f"{'bf16' if s.accum_dtype == 'bfloat16' else 'f32'}_{s.unroll}")
+            ms, pct, ys = {a[0]: [] for a in arms}, {}, {}
+            try:
+                for rnd in range(TUNER_CARVE_ROUNDS):
+                    for arm, force, xr in (arms if rnd % 2 == 0 else arms[::-1]):
+                        force_carveout(force)
+                        ms[arm].append(timed(lambda: csr_spmv(*args, s.replace(x_residency=xr))))
+                        ys[arm] = csr_spmv(*args, s.replace(x_residency=xr))
+                        torch.cuda.synchronize()
+                        pct[arm] = b1_carveout()[instance]
+            finally:
+                force_carveout(-2)
+            med = {a: float(np.median(v)) for a, v in ms.items()}
+            rows.append({"matrix": name, "schedule": sched_tag(s), "instance": instance,
+                         "median_ms": med, "runs_ms": ms, "carveout_pct": pct,
+                         "stream_over_vmem": med["stream"] / med["vmem"],
+                         "vmem_over_driver": med["vmem"] / med["driver"],
+                         "least_shared_over_vmem": med["least_shared"] / med["vmem"],
+                         "same_bits": all(torch.equal(ys[a], ys["vmem"]) for a in ys)})
+            if not rows[-1]["same_bits"]:
+                raise AssertionError(f"tuner: B1's carveout changed y: {rows[-1]}")
+        del mat
+    return {"rows": rows}
+
+
+def tuner_serve(card_tuner, pool: dict, web: np.ndarray, fps: dict,
+                csr_schedule, web_schedule) -> tuple[dict, dict]:
+    """17(d): compile-time mode through ``AutoSpmvSession.serve_optimize``
+    with the card-fitted tuner: ``TUNER_SERVE`` requests each of
+    ``human_gene2`` and ``webgraph``, B1 launches = requests, y against
+    float64; then B1 at the served schedule against phase 1's, in turns."""
+    session = AutoSpmvSession(card_tuner)
+    rng = np.random.default_rng(SEED + 171)
+    cases = (("human_gene2", pool["human_gene2"], fps["human_gene2"], csr_schedule),
+             (f"webgraph@{web.shape[0]}", web, matrix_fingerprint(web), web_schedule))
+    reset_launches()
+    served = []
+    for name, dense, fp, _ in cases:
+        for i in range(TUNER_SERVE):
+            x = rng.normal(size=dense.shape[1]).astype(np.float32)
+            plan = session.serve_optimize(dense, "latency", fingerprint=fp)
+            y = plan.kernel(x).cpu().numpy()
+            err, tol = scaled_err(y, host_product(dense, x)), tol_of(plan.schedule)
+            served.append({"matrix": name, "request": i, "format": plan.fmt,
+                           "schedule": sched_tag(plan.schedule) + "_" + plan.schedule.x_residency,
+                           "hit": plan.cache_hit, "err": err, "tol": tol})
+            if plan.fmt != "csr" or not (np.isfinite(y).all() and err <= tol):
+                raise AssertionError(f"tuner: served request wrong: {served[-1]}")
+    torch.cuda.synchronize()
+    got = read_launches()
+    check_launches("tuner(serve)", got, {**{k: 0 for k in WRAPPERS},
+                                         "csr": TUNER_SERVE * len(cases)})
+    timings = []
+    for name, dense, fp, before in cases:
+        after = session.tuner.plan_compile_time(extract_features(dense), "latency").schedule
+        mat = prepare(dense, "csr", DEFAULT_SCHEDULE, device=DEVICE)
+        x = torch.as_tensor(rng.normal(size=dense.shape[1]).astype(np.float32), device=DEVICE)
+        row = b1_in_turns(mat, x, before, after)
+        row["matrix"] = name
+        timings.append(row)
+        del mat
+    return {"requests": served, "launches": got, "session": session.stats.as_dict(),
+            "b1_in_turns": timings}, got
+
+
+def tuner_runtime(card_tuner, model_tuner, pool: dict, fps: dict) -> tuple[dict, dict]:
+    """17(e): run-time mode over the pool with the card-fitted tuner, its
+    format against the model-fitted tuner's, each §5.3 decision with its
+    gain and overhead in seconds; converted kernels against float64."""
+    session = AutoSpmvSession(card_tuner)
+    rng = np.random.default_rng(SEED + 172)
+    reset_launches()
+    rows = []
+    for n, dense in pool.items():
+        feats = extract_features(dense)
+        x = rng.normal(size=dense.shape[1]).astype(np.float32)
+        for obj in OBJECTIVES:
+            theirs = model_tuner.plan_run_time(feats, obj)
+            ours = card_tuner.plan_run_time(feats, obj)
+            row = {"matrix": n, "objective": obj, "format": ours.best_format,
+                   "model_format": theirs.best_format, "agree": ours.best_format == theirs.best_format,
+                   "latency_gain_s": ours.latency_gain_per_iter,
+                   "model_latency_gain_s": theirs.latency_gain_per_iter,
+                   "gain_10k_s": 10_000 * ours.latency_gain_per_iter,
+                   "overhead_s": ours.overhead_s}
+            try:
+                res = session.run_time_optimize(dense, obj, n_iterations=10_000,
+                                                fingerprint=fps[n])
+            except InfeasibleConfig as exc:
+                row["infeasible"] = str(exc)[:120]
+                rows.append(row)
+                continue
+            row["convert"] = res.convert
+            if res.kernel is not None:
+                y = res.kernel(x).cpu().numpy()
+                row["kernel"] = type(res.kernel.mat).__name__.lower()
+                row["err"] = scaled_err(y, host_product(dense, x))
+                if row["err"] > tol_of(res.kernel.schedule):
+                    raise AssertionError(f"tuner: run-time kernel wrong: {row}")
+            rows.append(row)
+    torch.cuda.synchronize()
+    got = read_launches()
+    want = {k: 0 for k in WRAPPERS}
+    for r in rows:
+        if "kernel" in r:
+            want[r["kernel"]] += 1
+    check_launches("tuner(runtime)", got, want)
+    return {"decisions": rows, "agree": sum(r["agree"] for r in rows), "of": len(rows),
+            "converted": sum(bool(r.get("convert")) for r in rows), "launches": got}, got
+
+
+def run_tuner_phase(model_tuner, pool: dict, web: np.ndarray, fps: dict,
+                    csr_schedule, web_schedule) -> tuple[dict, dict]:
+    """Phase 17: the tuner learns the card. (a) B1's carveout knob, (b) the
+    card's dataset, (c) the labels it gives against the default and the
+    cost-model tuner, leave-one-out, (d) compile-time serving with the
+    card-fitted tuner, (e) run-time mode with it. Returns (payload,
+    launches of the served paths (d) and (e))."""
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    out["carveout"] = tuner_carveout(pool, web, csr_schedule, web_schedule)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shapes = {}
+    ds, out["dataset"] = tuner_dataset(pool, shapes)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["labels"] = tuner_labels(ds, model_tuner, shapes)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=DEVICE)).fit(ds)
+    card_tuner = AutoSpMV(pred, model_tuner.overhead, device=DEVICE, dataset=ds)
+    out["fit_s"] = time.perf_counter() - t0
+    out["serve"], got = tuner_serve(card_tuner, pool, web, fps, csr_schedule, web_schedule)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["runtime"], got_rt = tuner_runtime(card_tuner, model_tuner, pool, fps)
+    secs["e"] = time.perf_counter() - t0
+    out["part_seconds"] = secs
+    return out, {k: got[k] + got_rt[k] for k in got}
+
+
 def main() -> None:
     t_all = time.perf_counter()
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -4854,6 +5280,15 @@ def main() -> None:
         launches[k] += got[k]
     torch.cuda.empty_cache()
     emit("dist", seconds=time.perf_counter() - t0, launches=got, **dist_run)
+
+    # ---- tuner: the card's dataset, both modes fitted on it and served ---
+    t0 = time.perf_counter()
+    tuner_run, got = run_tuner_phase(tuner, pool, extra["webgraph"], fps, csr_schedule,
+                                     web_schedule)
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("tuner", seconds=time.perf_counter() - t0, launches=got, **tuner_run)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

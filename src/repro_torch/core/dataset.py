@@ -2,21 +2,33 @@
 
 Builds the labelled tuning dataset: every (matrix x configuration) cell gets
 the four objective values. The paper collected 15,520 records over 30
-matrices on two GPUs (~70 M kernel runs); here each record is an analytical
-cost-model evaluation on exact storage statistics plus (optionally)
-measured wall-times of the per-format plain-torch oracles. Replacing the
-cost-model labels by CUDA-event and NVML measurements is a later slice. ``scale``
-shrinks matrices for laptop-scale collection while preserving the feature
-spread (generate.py).
+matrices on two GPUs (~70 M kernel runs); here each cell gets an analytical
+cost-model record on exact storage statistics (``source="model_<hw>"``)
+and, with ``measure=True``, measured latencies:
+
+* over the card's space (``space=CardSpace(...)``), one record per point
+  (one per distinct launch) with its schedule, timed through the kernels on
+  a CUDA device (``source="measured_cuda"``; CUDA events, L2 flushed), the
+  storage converted once per (matrix, format, geometry);
+* over any other space, one record per format at the default schedule
+  (``measure_formats``), as the reference does.
+
+A measured record carries latency only (energy, power and efficiency are
+NaN: they need NVML). ``best_record`` takes an objective's label from the
+records that carry it, latency from the measured ones where a matrix has
+them, and treats measured times within the matrix's spread as ties.
+``scale`` shrinks matrices for laptop-scale collection while preserving the
+feature spread (generate.py).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 
@@ -30,8 +42,8 @@ from repro_torch.core.objectives import (
     H100_SXM,
     measure_formats,
 )
-from repro_torch.core.tuning_space import TuningConfig, full_space
-from repro_torch.kernels.common import resolve_device
+from repro_torch.core.tuning_space import CardSpace, TuningConfig, full_space, tie_order
+from repro_torch.kernels.common import InfeasibleConfig, resolve_device
 from repro_torch.sparse.generate import MATRIX_NAMES, PATTERN_NAMES, generate_by_name, random_matrix
 from repro_torch.utils.io import atomic_write_text
 from repro_torch.utils.logging import get_logger
@@ -80,15 +92,32 @@ class TuningDataset:
     def best_record(
         self, matrix: str, objective: str, *, formats: Sequence[str] | None = None
     ) -> TuningRecord:
+        """The matrix's best feasible record for ``objective`` among the
+        records that carry it (not NaN). Latency comes from the measured
+        records where the matrix has some; measured times within the
+        matrix's spread (``meta["spread"]``, relative) of the fastest are
+        ties, broken by ``tuning_space.tie_order`` (the default first, then
+        fewer rows per block and accumulators), so labels do not flip
+        between collections."""
         cands = [
             r
             for r in self.for_matrix(matrix)
-            if r.feasible and (formats is None or r.config.fmt in formats)
+            if r.feasible
+            and (formats is None or r.config.fmt in formats)
+            and not math.isnan(r.objective(objective))
         ]
         if not cands:
             raise ValueError(f"no feasible record for {matrix}")
+        measured = [r for r in cands if objective == "latency" and is_measured(r)]
+        if measured:
+            cands = measured
         key = lambda r: r.objective(objective)
-        return min(cands, key=key) if MINIMIZE[objective] else max(cands, key=key)
+        best = min(cands, key=key) if MINIMIZE[objective] else max(cands, key=key)
+        spread = self.meta.get("spread", {}).get(matrix) if measured else None
+        if spread is not None:
+            ties = [r for r in cands if r.latency <= best.latency * (1.0 + spread)]
+            best = min(ties, key=lambda r: tie_order(r.config))
+        return best
 
     def default_record(self, matrix: str) -> TuningRecord:
         from repro_torch.core.tuning_space import DEFAULT_CONFIG
@@ -142,6 +171,11 @@ class TuningDataset:
         return cls(records, blob.get("meta", {}))
 
 
+def is_measured(record: TuningRecord) -> bool:
+    """Whether a record's latency was measured (``source="measured_<device>"``)."""
+    return record.source.startswith("measured_")
+
+
 def _suite_matrices(scale: float, names: Sequence[str]) -> dict[str, np.ndarray]:
     return {name: generate_by_name(name, scale=scale) for name in names}
 
@@ -159,40 +193,162 @@ def _extra_matrices(n_extra: int, seed: int = 100) -> dict[str, np.ndarray]:
     return out
 
 
+def host_timer(fn: Callable, reps: int) -> dict[str, float]:
+    """``fn`` on the host clock: one call to warm up, then the median and
+    quartiles of ``reps`` calls, in milliseconds (the CPU's timer for the
+    card's space; its plain versions)."""
+    from repro_torch.utils.timing import percentile
+
+    fn()
+    ms = []
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"median_ms": percentile(ms, 50), "q1_ms": percentile(ms, 25),
+            "q3_ms": percentile(ms, 75)}
+
+
+def _measure_card(ds: TuningDataset, name: str, dense: np.ndarray, feats, stats,
+                  space: CardSpace, points: list[TuningConfig], dev, reps: int,
+                  timer: Callable | None, on_point: Callable | None) -> None:
+    """Time every point of ``points`` on ``dev``: storage converted once per
+    (format, geometry) through ``compile_spmv`` (one scan of the dense
+    matrix for all of them), each point called through the served path."""
+    import torch
+
+    from repro_torch.kernels.ops import PreparedSpmv, compile_spmv
+    from repro_torch.sparse.formats import shared_nonzeros
+    from repro_torch.utils.timing import _block, cuda_time_ms
+
+    if timer is None:
+        if dev.type == "cuda":
+            def timer(fn, cfg):
+                with torch.cuda.device(dev):
+                    return cuda_time_ms(fn, warmup=2, reps=reps)
+        else:
+            def timer(fn, cfg):
+                return host_timer(fn, reps)
+    meta, secs = ds.meta, ds.meta["seconds"]
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=dense.shape[1]).astype(np.float32), device=dev)
+    storage: dict[tuple, list[TuningConfig]] = {}
+    admitted: dict[tuple, bool] = {}
+    for cfg in points:
+        at = space.launch(stats, cfg)
+        storage.setdefault((cfg.fmt, at.geometry), []).append(cfg)
+        admitted[(cfg.fmt, at.geometry)] = at.feasible
+    spreads = []
+    conversions = 0
+    with shared_nonzeros(dense):
+        for key, cfgs in storage.items():
+            prepared = None
+            if admitted[key]:
+                t0 = time.perf_counter()
+                try:
+                    prepared = compile_spmv(dense, key[0], cfgs[0].schedule, device=dev)
+                    _block(prepared.mat)
+                    conversions += 1
+                except InfeasibleConfig:
+                    prepared = None
+                secs["conversion"] += time.perf_counter() - t0
+            for cfg in cfgs:
+                latency = math.inf
+                if prepared is not None:
+                    kernel = PreparedSpmv(prepared.mat, cfg.schedule, dev)
+                    last = []
+
+                    def call():
+                        last[:] = [kernel(x)]
+                        meta["calls"][cfg.fmt] = meta["calls"].get(cfg.fmt, 0) + 1
+                        return last[0]
+
+                    t0 = time.perf_counter()
+                    got = timer(call, cfg)
+                    secs["timing"] += time.perf_counter() - t0
+                    latency = got["median_ms"] * 1e-3
+                    spreads.append((got["q3_ms"] - got["q1_ms"]) / got["median_ms"])
+                refused = prepared is not None and on_point is not None and (
+                    on_point(name, cfg, kernel, x, last[0]) is False)
+                ds.records.append(TuningRecord(
+                    matrix=name, features=feats, config=cfg, latency=latency,
+                    energy=math.nan, power=math.nan, efficiency=math.nan,
+                    feasible=math.isfinite(latency) and not refused,
+                    source=f"measured_{dev.type}"))
+    meta["spread"][name] = float(np.median(spreads)) if spreads else 0.0
+    meta["conversions"][name] = conversions
+
+
 def collect_dataset(
     *,
     scale: float = 0.002,
     names: Sequence[str] = MATRIX_NAMES,
     n_extra: int = 0,
     hw: HardwareProfile = H100_SXM,
-    space: Sequence[TuningConfig] | None = None,
+    space: Sequence[TuningConfig] | CardSpace | None = None,
     measure: bool = False,
     measure_reps: int = 3,
     device=None,
+    matrices: Mapping[str, np.ndarray] | Iterable[tuple[str, np.ndarray]] | None = None,
+    timer: Callable | None = None,
+    on_point: Callable | None = None,
 ) -> TuningDataset:
     """Evaluate every (matrix x config) cell; returns the labelled dataset.
 
     The cost-model records touch no tensor; ``device`` matters only with
-    ``measure=True``, which times the per-format oracles there (``None`` =
-    CUDA)."""
-    space = list(space) if space is not None else list(full_space())
-    matrices = _suite_matrices(scale, names)
-    matrices.update(_extra_matrices(n_extra))
+    ``measure=True`` (``None`` = CUDA). ``matrices`` (name -> dense, or an
+    iterable of such pairs, generated as it is read) replaces the suite of
+    ``names`` at ``scale`` and the ``n_extra`` augmentation matrices.
+
+    With ``space`` a ``CardSpace`` each matrix contributes its own points
+    (one per distinct launch), and ``measure=True`` times each of them
+    (``measure_reps`` repetitions): on a CUDA device with ``cuda_time_ms``,
+    every repetition one launch of the format's kernel, on the CPU on the
+    host clock. ``timer(fn, config)`` replaces that timer; it returns
+    ``median_ms``, ``q1_ms`` and ``q3_ms``. ``on_point(matrix, config,
+    kernel, x, y)`` sees each timed point with the ``y`` of its last call;
+    returning ``False`` refuses the point (its record stays, infeasible, so
+    no label or fit takes it).
+    ``meta`` then holds each matrix's spread (median relative
+    interquartile range of its points), the conversions per matrix, the
+    calls made per format (``calls``: the launches, on a card) and the wall
+    seconds split into generation, features, model, conversion and
+    timing."""
+    card = isinstance(space, CardSpace)
+    if not card:
+        space = list(space) if space is not None else list(full_space())
+    t0 = time.time()
+    if matrices is None:
+        matrices = _suite_matrices(scale, names)
+        matrices.update(_extra_matrices(n_extra))
     model = CostModel(hw)
     ds = TuningDataset(
         meta={
             "scale": scale,
             "hw": hw.name,
-            "n_configs": len(space),
-            "n_matrices": len(matrices),
+            "n_configs": None if card else len(space),
+            "n_matrices": None,
             "collected_unix": time.time(),
         }
     )
-    t0 = time.time()
-    for mi, (name, dense) in enumerate(matrices.items()):
+    if card and measure:
+        ds.meta.update(spread={}, conversions={}, calls={}, seconds=dict.fromkeys(
+            ("generation", "features", "model", "conversion", "timing"), 0.0))
+        ds.meta["seconds"]["generation"] = time.time() - t0
+    items = iter(matrices.items() if isinstance(matrices, Mapping) else matrices)
+    n_configs = mi = 0
+    while True:
+        t_gen = time.perf_counter()
+        try:
+            name, dense = next(items)
+        except StopIteration:
+            break
+        t_feat = time.perf_counter()
         feats = extract_features(dense)
         stats = MatrixStats(dense)
-        for cfg in space:
+        points = space.points(stats) if card else space
+        t_model = time.perf_counter()
+        for cfg in points:
             vals = model.evaluate(stats, cfg.fmt, cfg.schedule)
             ds.records.append(
                 TuningRecord(
@@ -207,14 +363,22 @@ def collect_dataset(
                     source=f"model_{hw.name}",
                 )
             )
-        if measure:
+        n_configs += len(points)
+        if card and measure:
+            secs = ds.meta["seconds"]
+            secs["generation"] += t_feat - t_gen
+            secs["features"] += t_model - t_feat
+            secs["model"] += time.perf_counter() - t_model
+            _measure_card(ds, name, dense, feats, stats, space, points,
+                          resolve_device(device), measure_reps, timer, on_point)
+        elif measure:
             dev = resolve_device(device)
             times = measure_formats(dense, reps=measure_reps, device=dev)
             for fmt, t in times.items():
                 from repro_torch.kernels.common import DEFAULT_SCHEDULE
 
-                # measured records carry the default schedule (the schedule
-                # knobs do not exist for the plain-torch oracles)
+                # these records carry the default schedule: one time per
+                # format, as the reference measures its oracles
                 ds.records.append(
                     TuningRecord(
                         matrix=name,
@@ -224,17 +388,21 @@ def collect_dataset(
                         energy=float("nan"),
                         power=float("nan"),
                         efficiency=float("nan"),
-                        feasible=True,
+                        feasible=math.isfinite(t),
                         source=f"measured_{dev.type}",
                     )
                 )
-        if (mi + 1) % 10 == 0:
-            log.info("collected %d/%d matrices (%.1fs)", mi + 1, len(matrices), time.time() - t0)
+        mi += 1
+        if mi % 10 == 0:
+            log.info("collected %d matrices (%.1fs)", mi, time.time() - t0)
+    ds.meta["n_matrices"] = mi
+    if card:
+        ds.meta["n_configs"] = n_configs
     log.info(
-        "dataset: %d records (%d matrices x %d configs) in %.1fs",
+        "dataset: %d records (%d matrices, %d configs) in %.1fs",
         len(ds),
-        len(matrices),
-        len(space),
+        mi,
+        n_configs,
         time.time() - t0,
     )
     return ds

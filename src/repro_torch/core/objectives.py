@@ -1,11 +1,15 @@
 """Objective models: latency, energy, average power, energy efficiency.
 
 The paper measures these four objectives with NVML power sensors on two GPUs
-(§6.3). In this slice objectives come from two clearly-separated sources:
+(§6.3). Here objectives come from two clearly-separated sources:
 
-* ``measure_formats`` — *real* wall-time measurements of the plain-torch
-  oracle SpMV per format on the named device (the paper's repetition-and-
-  average protocol). Used for the run-time (format-selection) labels.
+* measurements — on a CUDA device, ``measure_formats`` and
+  ``core.dataset.collect_dataset(measure=True)`` time the kernels B1–B4
+  through the served path (``kernels.ops.compile_spmv``) with CUDA events,
+  the L2 flushed before every repetition; on the CPU, ``measure_formats``
+  times the plain-torch oracles on the host clock (the reference's
+  protocol). They give latency only: power and energy need NVML, which
+  nothing here reads yet.
 * ``CostModel`` — an analytical model evaluated on exact storage statistics.
   It models the resource trade-offs each schedule knob controls (per-step
   overhead vs tile size, gather/scatter throughput, dense-block vs scalar
@@ -14,9 +18,10 @@ The paper measures these four objectives with NVML power sensors on two GPUs
   take the ``HardwareProfile`` as a parameter; the default profile is
   ``H100_SXM``: data-sheet values where there is one, and documented
   estimates (marked ``# estimate, to be replaced by measurement``)
-  elsewhere. The model's *orderings* (which config is best) drive the
-  tuner, not its absolute numbers; replacing its labels by CUDA-event and
-  NVML measurements is the tuner slice.
+  elsewhere. It prices the reference's TPU kernels (flat nonzero tiles,
+  ``nnz_tile``-step grids), not the card's; where a dataset holds measured
+  latencies, the labels and the latency regressor take those, and energy,
+  power and efficiency stay the model's.
 
 Energy accounting follows the paper's measurement protocol (§6.3): idle
 power is EXCLUDED — E = FLOPs*e_flop + HBM_bytes*e_hbm + fast_touch*e_vmem +
@@ -353,19 +358,28 @@ class CalibratedCostModel(CostModel):
 
 
 # ---------------------------------------------------------------------------
-# measured (wall-time) source — the run-time-mode ground truth
+# measured source — the run-time-mode ground truth
 # ---------------------------------------------------------------------------
 
 
 def measure_formats(
     dense: np.ndarray, reps: int = 3, warmup: int = 1, seed: int = 0, *, device=None
 ) -> dict[str, float]:
-    """Mean wall-time (s) of the plain-torch oracle SpMV per format on
-    ``device`` (``None`` = CUDA; the timer synchronises CUDA results)."""
+    """Seconds of one SpMV per format at the default schedule on ``device``
+    (``None`` = CUDA).
+
+    On a CUDA device: the format's kernel as the served path prepares and
+    calls it (``compile_spmv``), the median of ``reps`` CUDA-event timings
+    with the L2 flushed before each (``cuda_time_ms``); each format's
+    wrapper launches ``warmup + reps`` times, and a format whose ``prepare``
+    refuses the storage gets ``inf`` (no launch). On the CPU: the mean wall
+    time of the plain-torch oracle (the reference's protocol)."""
     import torch
 
+    from repro_torch.kernels.common import DEFAULT_SCHEDULE, InfeasibleConfig
+    from repro_torch.kernels.ops import compile_spmv
     from repro_torch.sparse import from_dense, spmv
-    from repro_torch.utils.timing import measure_wall_time
+    from repro_torch.utils.timing import cuda_time_ms, measure_wall_time
 
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -374,7 +388,17 @@ def measure_formats(
     )
     out = {}
     for fmt in format_names():
-        mat = from_dense(dense, fmt, device=device)
-        res = measure_wall_time(lambda: spmv(mat, x), warmup=warmup, reps=reps)
-        out[fmt] = res["mean_s"]
+        if device.type == "cuda":
+            try:
+                kernel = compile_spmv(dense, fmt, DEFAULT_SCHEDULE, device=device)
+            except InfeasibleConfig:
+                out[fmt] = math.inf
+                continue
+            with torch.cuda.device(device):
+                res = cuda_time_ms(lambda: kernel(x), warmup=warmup, reps=reps)
+            out[fmt] = res["median_ms"] * 1e-3
+        else:
+            mat = from_dense(dense, fmt, device=device)
+            res = measure_wall_time(lambda: spmv(mat, x), warmup=warmup, reps=reps)
+            out[fmt] = res["mean_s"]
     return out

@@ -11,6 +11,14 @@ Per optimization objective, Auto-SpMV trains:
   decision and for the paper's Fig. 11 study.
 
 Models come from the zoo (paper Table 1/4) and can be HPO-tuned (hpo.py).
+
+Labels come from ``TuningDataset.best_record`` (an objective's label from
+the records that carry it; latency from measured records where a matrix
+has them). The format classifier learns from the matrices whose records
+cover every format the dataset holds (all of them, where every matrix was
+collected over one space). Each regressor fits the feasible records that
+carry its objective, the latency regressor the measured ones where the
+dataset has any, so the §5.3 gate weighs a measured gain in seconds.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core.dataset import TuningDataset
+from repro_torch.core.dataset import TuningDataset, is_measured
 from repro_torch.core.features import SparsityFeatures
 from repro_torch.core.hpo import tune_model
 from repro_torch.core.tuning_space import ALL_KNOBS, KNOBS, TuningConfig
@@ -87,6 +95,11 @@ class AutoSpmvPredictor:
         # freeze the format vocabulary for the regressors' config encoding
         self.format_names_: tuple[str, ...] = format_names()
         matrices = dataset.matrices
+        fmts_of: dict[str, set] = {}
+        for r in dataset.records:
+            fmts_of.setdefault(r.matrix, set()).add(r.config.fmt)
+        every = set().union(*fmts_of.values()) if fmts_of else set()
+        covering = [m for m in matrices if fmts_of[m] == every] or matrices
 
         feats, fmt_labels, knob_labels = [], {o: [] for o in OBJECTIVES}, {}
         for knob in ALL_KNOBS:
@@ -96,8 +109,8 @@ class AutoSpmvPredictor:
             feats.append(dataset.for_matrix(m)[0].features)
             for obj in OBJECTIVES:
                 # run-time mode label: best format over the full space
-                best_fmt = dataset.best_record(m, obj).config.fmt
-                fmt_labels[obj].append(best_fmt)
+                if m in covering:
+                    fmt_labels[obj].append(dataset.best_record(m, obj).config.fmt)
                 # compile-time mode labels: best knob values with the
                 # default (held) format fixed
                 best_cfg = dataset.best_record(
@@ -109,30 +122,42 @@ class AutoSpmvPredictor:
                         str(getattr(best_cfg.schedule, field_))
                     )
         X = _feature_matrix(feats)
+        X_run = X[[i for i, m in enumerate(matrices) if m in covering]]
 
         for obj in OBJECTIVES:
-            self.format_clf_[obj] = self._fit_classifier(X, np.array(fmt_labels[obj]))
+            self.format_clf_[obj] = self._fit_classifier(X_run, np.array(fmt_labels[obj]))
             for knob in ALL_KNOBS:
                 y = np.array(knob_labels[(obj, knob)])
                 self.knob_clf_[(obj, knob)] = self._fit_classifier(X, y)
 
         # regressors on the record set (features + config encoding); capped
-        # subsample keeps single-core fit times in seconds
-        recs = dataset.feasible()
-        if len(recs) > self.config.max_regressor_samples:
-            sel = np.random.default_rng(self.config.seed).choice(
-                len(recs), self.config.max_regressor_samples, replace=False
-            )
-            recs = [recs[i] for i in sel]
-        Xr = np.stack(
-            [
-                np.concatenate(
-                    [r.features.log_vector(), _config_row(r.config, self.format_names_)]
-                )
-                for r in recs
-            ]
-        )
+        # subsample keeps single-core fit times in seconds. Each fits the
+        # feasible records that carry its objective, latency the measured
+        # ones where there are any: objectives with one record set share
+        # one subsample, as with a dataset of model records alone
+        feasible = dataset.feasible()
+        measured = [r for r in feasible if is_measured(r)]
+        samples: dict[tuple[int, ...], tuple] = {}
         for obj in OBJECTIVES:
+            pool = measured if obj == "latency" and measured else feasible
+            recs = [r for r in pool if not np.isnan(r.objective(obj))]
+            key = tuple(map(id, recs))
+            if key not in samples:
+                if len(recs) > self.config.max_regressor_samples:
+                    sel = np.random.default_rng(self.config.seed).choice(
+                        len(recs), self.config.max_regressor_samples, replace=False
+                    )
+                    recs = [recs[i] for i in sel]
+                Xr = np.stack(
+                    [
+                        np.concatenate(
+                            [r.features.log_vector(), _config_row(r.config, self.format_names_)]
+                        )
+                        for r in recs
+                    ]
+                )
+                samples[key] = (recs, Xr)
+            recs, Xr = samples[key]
             y = np.array([r.objective(obj) for r in recs])
             y = np.log(np.maximum(y, 1e-30))  # objectives span decades
             entry = REGRESSOR_ZOO[self.config.regressor_name]

@@ -44,6 +44,19 @@
 // 2 flops, plus x, indptr and y. At the served sizes latency sets the time:
 // the chain indptr -> values and columns -> x -> sums of a row CTA, and for
 // a hub row search -> values and columns -> x -> sums -> ticket.
+//
+// x is read only through the read-only path (__ldg), so where it lives is
+// the split of the SM's 256 KB between L1 and shared memory. `stream_x`
+// picks it per launch (the schedule's x_residency): 0 ("vmem") asks for the
+// least shared memory that keeps the CTAs an SM holds with the most, so the
+// rest is L1 for x; 1 ("stream") asks for the most shared memory, the least
+// L1. Measured on an H100 (PERF.md): the least shared memory outright (0 %)
+// cuts the CTAs an SM holds of csr_spmv_kernel, whose chunk path keeps
+// ~0.6 KB of static shared memory per CTA, and was up to 22 % slower at
+// human_gene2 than the driver's own choice; the most shared memory was
+// 4-78 % slower.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -324,6 +337,83 @@ __global__ void __launch_bounds__(kMaxThreads)
                          (long long)blockIdx.x);
 }
 
+constexpr int kMaxDevices = 16;
+// Per device, kernel (rows only, chunk + rows), accumulator and unroll: the
+// carveout (percent of the SM's shared memory) last set, -1 before any, and
+// the "vmem" carveout at each warp count, 0 until computed (stored + 1).
+int g_set[kMaxDevices][2][2][4];
+int g_vmem[kMaxDevices][2][2][4][kMaxThreads / spmv::kWarp + 1];
+bool g_init = false;
+// For measurement only (spmv_csr_force_carveout): a carveout every launch
+// asks for in place of the schedule's, -1 the driver's own choice; -2: none.
+int g_force = -2;
+
+// The least carveout that keeps the CTAs of `threads` threads an SM holds at
+// the most shared memory: those CTAs times (static + reserved) shared bytes,
+// over the SM's shared capacity, rounded up. 0 for a kernel without shared
+// memory. Leaves the kernel's carveout at 100.
+template <typename Kernel>
+cudaError_t vmem_carveout(Kernel kernel, int threads, int* pct) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  *pct = 0;
+  if (a.sharedSizeBytes == 0) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return e;
+  int dev = 0, blocks = 0, per_sm = 0, reserved = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0)) !=
+          cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev)) !=
+          cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)) !=
+          cudaSuccess) {
+    return e;
+  }
+  const long long need = (long long)blocks * ((long long)a.sharedSizeBytes + reserved);
+  const long long p = (100 * need + per_sm - 1) / per_sm;
+  *pct = p > 100 ? 100 : (int)p;
+  return cudaSuccess;
+}
+
+// Set `kernel`'s carveout for this launch (kind 0: rows only, 1: chunk +
+// rows) where it differs from the one last set on this device.
+template <typename Acc, int UNROLL, typename Kernel>
+cudaError_t set_carveout(Kernel kernel, int kind, int warps, int stream_x) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!g_init) {
+    for (auto& d : g_set)
+      for (auto& k : d)
+        for (auto& a : k)
+          for (int& u : a) u = -1;
+    g_init = true;
+  }
+  const int acc = std::is_same<Acc, spmv::AccBF16>::value ? 1 : 0;
+  const int u = UNROLL == 1 ? 0 : UNROLL == 2 ? 1 : UNROLL == 4 ? 2 : 3;
+  int& last = g_set[dev][kind][acc][u];
+  int pct = 100;
+  if (g_force != -2) {
+    pct = g_force;
+  } else if (!stream_x) {
+    int& known = g_vmem[dev][kind][acc][u][warps];
+    if (known == 0) {
+      int p = 0;
+      if ((e = vmem_carveout(kernel, warps * spmv::kWarp, &p)) != cudaSuccess) return e;
+      last = 100;  // vmem_carveout leaves it at the most
+      known = p + 1;
+    }
+    pct = known - 1;
+  }
+  if (last == pct) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+  if (e == cudaSuccess) last = pct;
+  return e;
+}
+
 }  // namespace
 
 // The launch is the plan's (kernels/csr.py, csr_launch_plan): CTAs of
@@ -333,12 +423,13 @@ __global__ void __launch_bounds__(kMaxThreads)
 // CTA). Refuses any other launch. `tickets` (int,
 // zero at the first launch; every launch leaves it zero), `end_part` and
 // `start_part` (float) hold at least `hub_ctas` entries each: wrapper
-// scratch, owned by one stream.
+// scratch, owned by one stream. `stream_x`: the L1 / shared split (above).
 extern "C" int spmv_csr_launch(const void* data, const void* indices, const void* indptr,
                                const void* x, void* y, int n_rows, int nnz,
                                int rows_per_block, int unroll, int hub_row, int chunk,
                                int hub_ctas, int ctas, void* tickets, void* end_part,
-                               void* start_part, int accum_bf16, void* stream) {
+                               void* start_part, int accum_bf16, int stream_x,
+                               void* stream) {
   if (n_rows <= 0) return (int)cudaSuccess;
   if (rows_per_block <= 0 || nnz < 0 || hub_row < 1 || chunk < 1 ||
       (long long)chunk / hub_row + 2 > kMaxHubs) {
@@ -354,14 +445,22 @@ extern "C" int spmv_csr_launch(const void* data, const void* indices, const void
   const int warps = rows_per_block < 8 ? rows_per_block : 8;
   const dim3 block(warps * spmv::kWarp);
   const dim3 grid((unsigned)ctas);
+  cudaError_t set = cudaSuccess;
 #define LAUNCH(ACC, U)                                                                   \
-  if (hub_ctas == 0) csr_rows_kernel<ACC, U><<<grid, block, 0, (cudaStream_t)stream>>>(  \
-      (const float*)data, (const int*)indices, (const int*)indptr, (const float*)x,      \
-      (float*)y, n_rows, rows_per_block);                                                \
-  else csr_spmv_kernel<ACC, U><<<grid, block, 0, (cudaStream_t)stream>>>(                \
-      (const float*)data, (const int*)indices, (const int*)indptr, (const float*)x,      \
-      (float*)y, n_rows, nnz, rows_per_block, hub_row, chunk, hub_ctas, (int*)tickets,   \
-      (float*)end_part, (float*)start_part)
+  if (hub_ctas == 0) {                                                                   \
+    set = set_carveout<ACC, U>(csr_rows_kernel<ACC, U>, 0, warps, stream_x);             \
+    if (set != cudaSuccess) return (int)set;                                             \
+    csr_rows_kernel<ACC, U><<<grid, block, 0, (cudaStream_t)stream>>>(                   \
+        (const float*)data, (const int*)indices, (const int*)indptr, (const float*)x,    \
+        (float*)y, n_rows, rows_per_block);                                              \
+  } else {                                                                               \
+    set = set_carveout<ACC, U>(csr_spmv_kernel<ACC, U>, 1, warps, stream_x);             \
+    if (set != cudaSuccess) return (int)set;                                             \
+    csr_spmv_kernel<ACC, U><<<grid, block, 0, (cudaStream_t)stream>>>(                   \
+        (const float*)data, (const int*)indices, (const int*)indptr, (const float*)x,    \
+        (float*)y, n_rows, nnz, rows_per_block, hub_row, chunk, hub_ctas, (int*)tickets, \
+        (float*)end_part, (float*)start_part);                                           \
+  }
   SPMV_DISPATCH(accum_bf16, unroll, LAUNCH);
 #undef LAUNCH
   return (int)cudaGetLastError();
@@ -373,4 +472,28 @@ extern "C" void spmv_csr_constants(int* out) {
   out[0] = kMaxThreads;
   out[1] = kMaxHubs;
   out[2] = kRound;
+}
+
+// The carveout (percent) last set on the current device for one instance
+// (kind 0: rows only, 1: chunk + rows), -1 if none: what the last launch of
+// that instance asked of the driver.
+extern "C" int spmv_csr_carveout(int kind, int accum_bf16, int unroll, int* out) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const int u = unroll == 1 ? 0 : unroll == 2 ? 1 : unroll == 4 ? 2 : unroll == 8 ? 3 : -1;
+  if (dev < 0 || dev >= kMaxDevices || kind < 0 || kind > 1 || u < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *out = g_init ? g_set[dev][kind][accum_bf16 ? 1 : 0][u] : -1;
+  return (int)cudaSuccess;
+}
+
+// For measurement: make every launch ask for carveout `pct` (0-100, or -1:
+// the driver's own choice, as before the schedule chose it) whatever its
+// x_residency; -2 restores the schedule's.
+extern "C" int spmv_csr_force_carveout(int pct) {
+  if (pct < -2 || pct > 100) return (int)cudaErrorInvalidValue;
+  g_force = pct;
+  return (int)cudaSuccess;
 }

@@ -3,34 +3,38 @@
 ``KernelSchedule`` is the paper's compile-time parameter vector. The field
 names, validation and choice sets are those of the reference package, so
 schedules, ``TuningConfig.as_dict()``, cache JSON and plans compare
-one-to-one between the two; what each knob steers on a Hopper card is:
+one-to-one between the two. What each knob steers, in the reference (a TPU
+Pallas kernel) and on a Hopper card:
 
-=====================  =========================  ============================
-paper (CUDA)           ``KernelSchedule`` field   Hopper launch parameter
-=====================  =========================  ============================
-thread-block size      ``rows_per_block``         rows owned by one CTA (SELL:
-                                                  slice height C; BELL: block
-                                                  height br, capped at 256)
-(ILP per thread)       ``nnz_tile``               storage width quantum of
-                                                  ELL/SELL: the width loops run
-                                                  whole quanta per trip; CSR
-                                                  pads nothing and ignores it
-maxrregcount           ``unroll``                 independent accumulators per
-                                                  thread
-L1/shared split        ``x_residency``            ``"vmem"``: x read through
-                                                  the read-only/L1 path;
-                                                  ``"stream"``: x fetched as a
-                                                  128-float panel per stored
-                                                  block (BELL only)
-(precision)            ``accum_dtype``            float32, or products and
-                                                  running sum rounded to bf16
-(SM scheduling)        ``dimension_semantics``    ignored by the CUDA kernels:
-                                                  CTAs are always independent
-=====================  =========================  ============================
+=================  =====================  ======================  =============================
+paper (CUDA)       ``KernelSchedule``     reference (TPU)         Hopper
+=================  =====================  ======================  =============================
+thread-block size  ``rows_per_block``     rows per grid step      B1: rows per row CTA; B3:
+(``tb_size``)                             (ELL/SELL/BELL); BELL   slice height C; B4: block
+                                          block height            height br (at most 256); B2:
+                                                                  plane rows (alignment only)
+maxrregcount       ``unroll``             gather unroll           B1, B2, B3: accumulators per
+                                                                  lane (the ``UNROLL`` template,
+                                                                  so the registers); B4 reads
+                                                                  none
+memory             ``x_residency``        x held in VMEM, or      B1: the SM's L1 / shared split
+                                          streamed per block      ("vmem": the least shared
+                                                                  memory that keeps its CTAs
+                                                                  per SM; "stream": the most);
+                                                                  B2-B4 read none
+(ILP per thread)   ``nnz_tile``           nonzeros per grid step  ELL/SELL: the storage width
+                                          (CSR's flat tile)       quantum; B1 reads none
+(precision)        ``accum_dtype``        f32 or bf16 sums        f32, or products and running
+                                                                  sums rounded to bf16
+(SM scheduling)    ``dimension_           grid semantics          read by no kernel: CTAs are
+                   semantics``                                    independent
+=================  =====================  ======================  =============================
 
-128 (four warps) and 8 stay the alignment quanta of ``nnz_tile`` and
-``rows_per_block``; both are harmless on a GPU. Re-deriving the choice sets
-for the card belongs to the tuner slice.
+Many schedules therefore give one launch on the card;
+``repro_torch.core.tuning_space.CardSpace`` keeps one point per distinct
+launch (``FormatSpec.card_launch``), and ``CARD_KNOBS`` names the knobs
+that reach B1. 128 (four warps) and 8 stay the alignment quanta of
+``nnz_tile`` and ``rows_per_block``; both are harmless on a GPU.
 
 All kernels accept a ``KernelSchedule`` and honour its tiling; the schedule
 is what the Auto-SpMV compile-time mode predicts per input matrix.

@@ -27,8 +27,11 @@ hub rows cost. The schedule's knobs map to it as:
                          8); the chunk CTAs have as many threads
 ``unroll``               accumulators per lane of a row warp
 ``accum_dtype``          float32, or products and every sum rounded to bf16
-``nnz_tile``             not read: CSR pads nothing
-``x_residency``,         not read: x goes through the read-only path
+``x_residency``          the SM's L1 / shared-memory split (x is read
+                         through L1): ``"vmem"`` the least shared memory
+                         that keeps the CTAs an SM holds, ``"stream"`` the
+                         most shared memory
+``nnz_tile``,            not read: CSR pads nothing
 ``dimension_semantics``
 =======================  ===============================================
 
@@ -190,7 +193,7 @@ def _csr_launch(
     n_rows = indptr.shape[0] - 1
     y = torch.empty(n_rows, dtype=torch.float32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = bind("spmv_csr", "spmv_csr_launch", [vp] * 5 + [ci] * 8 + [vp] * 3 + [ci, vp])
+    fn = bind("spmv_csr", "spmv_csr_launch", [vp] * 5 + [ci] * 8 + [vp] * 3 + [ci, ci, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets, end_part, start_part = _scratch(dev, stream, plan["hub_ctas"])
@@ -198,7 +201,8 @@ def _csr_launch(
             data.data_ptr(), indices.data_ptr(), indptr.data_ptr(), x.data_ptr(),
             y.data_ptr(), n_rows, data.shape[0], plan["rows_per_cta"], plan["unroll"],
             plan["hub_row"], plan["chunk"], plan["hub_ctas"], plan["ctas"], tickets,
-            end_part, start_part, int(schedule.accum_dtype == "bfloat16"), stream,
+            end_part, start_part, int(schedule.accum_dtype == "bfloat16"),
+            int(schedule.x_residency == "stream"), stream,
         )
     check_launch(err, "csr_spmv")
     return y

@@ -24,6 +24,7 @@ both packages multiply the same storage (``container_from_numpy`` /
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Union
 
@@ -180,16 +181,61 @@ SparseFormat = Union[CSR, ELL, BELL, SELL]
 # ---------------------------------------------------------------------------
 
 
-def _row_counts(dense: np.ndarray) -> np.ndarray:
-    return (dense != 0).sum(axis=1).astype(np.int64)
+# the scans ``shared_nonzeros`` keeps: id(array) -> [array, scan or None]
+_SHARED_SCANS: dict[int, list] = {}
+
+
+@contextmanager
+def shared_nonzeros(dense: np.ndarray):
+    """Inside the block, the converters of ``dense`` (this array object, as
+    ``prepare`` passes it on) scan its nonzeros once and share the result:
+    converting one matrix to many storage geometries, as the tuner's dataset
+    does, pays the scan of the dense matrix once. The array is read-only
+    inside the block, so the scan cannot go stale."""
+    if not isinstance(dense, np.ndarray) or dense.ndim != 2:
+        raise TypeError("shared_nonzeros takes a 2-D numpy array")
+    if id(dense) in _SHARED_SCANS:  # already shared by an enclosing block
+        yield dense
+        return
+    writeable = dense.flags.writeable
+    dense.flags.writeable = False
+    _SHARED_SCANS[id(dense)] = [dense, None]
+    try:
+        yield dense
+    finally:
+        del _SHARED_SCANS[id(dense)]
+        dense.flags.writeable = writeable
+
+
+def _scan(dense: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``np.nonzero(dense)`` (the same arrays, in the same row-major order),
+    the nonzeros per row and their values, from the flat positions of the
+    mask: ``np.nonzero`` tests a float matrix element by element and took
+    most of a conversion at n ~ 14,000, and the values' gather is a cache
+    miss each. Shared inside ``shared_nonzeros``; callers must not write to
+    the arrays."""
+    entry = _SHARED_SCANS.get(id(dense))
+    if entry is not None and entry[0] is dense and entry[1] is not None:
+        return entry[1]
+    flat = np.flatnonzero(dense != 0)
+    rows, cols = np.divmod(flat, dense.shape[1]) if dense.shape[1] else (flat, flat.copy())
+    scan = (rows, cols, np.bincount(rows, minlength=dense.shape[0]), dense[rows, cols])
+    if entry is not None and entry[0] is dense:
+        entry[1] = scan
+    return scan
+
+
+def row_counts(dense: np.ndarray) -> np.ndarray:
+    """Nonzeros per row of a dense matrix (int64)."""
+    return _scan(dense)[2]
 
 
 def csr_from_dense(dense: np.ndarray, dtype=np.float32, *, device=None) -> CSR:
     device = resolve_device(device)
     dense = np.asarray(dense)
     n_rows, n_cols = dense.shape
-    rows, cols = np.nonzero(dense)
-    data = dense[rows, cols].astype(dtype)
+    rows, cols, _, values = _scan(dense)
+    data = values.astype(dtype)
     counts = np.bincount(rows, minlength=n_rows)
     indptr = np.zeros(n_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=indptr[1:])
@@ -211,14 +257,13 @@ def ell_from_dense(
     # kernel stops at a row's first zero)
     dense = np.asarray(dense).astype(dtype, copy=False)
     n_rows, n_cols = dense.shape
-    counts = _row_counts(dense)
+    rows, cc, counts, values = _scan(dense)
     width = max(int(counts.max(initial=0)), min_width)
     data = np.zeros((n_rows, width), dtype=dtype)
     cols = np.zeros((n_rows, width), dtype=np.int32)
-    rows, cc = np.nonzero(dense)
     # position of each nonzero within its row
     pos = np.arange(rows.size) - np.repeat(np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
-    data[rows, pos] = dense[rows, cc]
+    data[rows, pos] = values
     cols[rows, pos] = cc
     return ELL(
         data=to_tensor(data, device),
@@ -263,34 +308,27 @@ def sell_from_dense(
     # kernel stops at the padding, found by its zeros)
     dense = np.asarray(dense).astype(dtype, copy=False)
     n_rows, n_cols = dense.shape
-    counts = _row_counts(dense)
+    rows, cc, counts, values = _scan(dense)
     n_slices = (n_rows + C - 1) // C
-    widths = np.zeros(n_slices, dtype=np.int32)
-    for s in range(n_slices):
-        w = int(counts[s * C : (s + 1) * C].max(initial=0))
-        widths[s] = _ceil_to(max(w, 1), q)
+    # each slice as wide as its longest row (at least 1), rounded up to q
+    per_row = np.zeros(n_slices * C, dtype=np.int64)
+    per_row[:n_rows] = counts
+    longest = per_row.reshape(n_slices, C).max(axis=1)
+    widths = ((np.maximum(longest, 1) + q - 1) // q * q).astype(np.int32)
     slice_ptr = np.zeros(n_slices + 1, dtype=np.int32)
     np.cumsum(widths.astype(np.int64) * C, out=slice_ptr[1:])
     total = int(slice_ptr[-1])
     data = np.zeros(total, dtype=dtype)
     cols = np.zeros(total, dtype=np.int32)
-    row_ids = np.full(total, n_rows, dtype=np.int32)
-    for s in range(n_slices):
-        w = int(widths[s])
-        base = int(slice_ptr[s])
-        # build the (C, w) slice plane row-major, then store transposed
-        plane_d = np.zeros((C, w), dtype=dtype)
-        plane_c = np.zeros((C, w), dtype=np.int32)
-        plane_r = np.full((C, w), n_rows, dtype=np.int32)
-        for r_local in range(min(C, n_rows - s * C)):
-            r = s * C + r_local
-            cc = np.nonzero(dense[r])[0]
-            plane_d[r_local, : cc.size] = dense[r, cc]
-            plane_c[r_local, : cc.size] = cc
-            plane_r[r_local, :] = r
-        data[base : base + C * w] = plane_d.T.ravel()
-        cols[base : base + C * w] = plane_c.T.ravel()
-        row_ids[base : base + C * w] = plane_r.T.ravel()
+    # the k-th nonzero of row r = s*C + i lives at slice_ptr[s] + k*C + i
+    k = np.arange(rows.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    at = slice_ptr[rows // C].astype(np.int64) + k * C + rows % C
+    data[at] = values
+    cols[at] = cc
+    # every slot of a slice's row holds the row (each of the slice's width
+    # steps holds its C rows in order); rows past the last hold n_rows
+    first = np.repeat(np.arange(n_slices, dtype=np.int32) * C, widths)
+    row_ids = np.minimum(first[:, None] + np.arange(C, dtype=np.int32), n_rows).reshape(-1)
     return SELL(
         data=to_tensor(data, device),
         cols=to_tensor(cols, device),

@@ -41,7 +41,13 @@ Contract notes for plugin authors (enforced by the shared suite in
   compute the exact result or raise ``InfeasibleConfig`` — never silently
   corrupt;
 * ``footprint`` must return finite, non-negative statistics with
-  ``useful_flops == 2 * nnz``.
+  ``useful_flops == 2 * nnz``;
+* ``card_launch`` (optional) says, from integers only, what a schedule
+  becomes on the card: the storage geometry ``prepare`` builds, the launch
+  its kernel makes on it (the plan plus the schedule fields the kernel
+  reads), and whether ``prepare`` admits it. The card's tuning space
+  (``repro_torch.core.tuning_space.CardSpace``) keeps one point per
+  distinct (geometry, launch); a format without it keeps every schedule.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from __future__ import annotations
 import weakref
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable
+from typing import Callable, Hashable, NamedTuple
 
 import numpy as np
 import torch
@@ -59,12 +65,14 @@ from repro_torch.kernels.common import (
     LANE,
     InfeasibleConfig,
     KernelSchedule,
+    block_segments,
     ceil_to,
     pad_axis,
     resolve_device,
 )
 
 __all__ = [
+    "CardLaunch",
     "FormatSpec",
     "InfeasibleConfig",
     "KernelFootprint",
@@ -106,10 +114,10 @@ class MatrixStats:
     def __init__(self, dense: np.ndarray):
         dense = np.asarray(dense)
         self.n_rows, self.n_cols = dense.shape
-        self.row_counts = (dense != 0).sum(axis=1).astype(np.int64)
+        self._mask = dense != 0
+        self.row_counts = np.count_nonzero(self._mask, axis=1).astype(np.int64)
         self.nnz = int(self.row_counts.sum())
         self.max_nnz = int(self.row_counts.max(initial=0))
-        self._mask = dense != 0
 
     @lru_cache(maxsize=16)
     def block_occupancy(self, br: int, bc: int) -> tuple[int, int]:
@@ -150,6 +158,22 @@ class KernelFootprint:
     note: str = ""
 
 
+class CardLaunch(NamedTuple):
+    """What one (matrix, format, schedule) point is on the card: the storage
+    ``prepare`` builds (``geometry``), the launch its kernel makes on that
+    storage (``launch``: the launch plan and the schedule fields the kernel
+    reads), and whether ``prepare`` admits the storage (``feasible``; its
+    guard refuses what ``check_storage_bytes`` refuses)."""
+
+    geometry: Hashable
+    launch: Hashable
+    feasible: bool = True
+
+
+def _plan_key(plan: dict) -> tuple:
+    return tuple(sorted(plan.items()))
+
+
 # ---------------------------------------------------------------------------
 # The FormatSpec contract + registry
 # ---------------------------------------------------------------------------
@@ -174,6 +198,9 @@ class FormatSpec:
     footprint: Callable  # (MatrixStats, KernelSchedule) -> KernelFootprint
     priority: int = 100
     description: str = ""
+    # (MatrixStats, KernelSchedule, n_sms) -> CardLaunch; None: every
+    # schedule is its own point of the card's space
+    card_launch: Callable | None = None
 
 
 _REGISTRY: dict[str, FormatSpec] = {}
@@ -275,9 +302,9 @@ def spec_for(mat) -> FormatSpec:
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.bell import bell_spmv  # noqa: E402
-from repro_torch.kernels.csr import csr_spmv  # noqa: E402
-from repro_torch.kernels.ell import ell_spmv  # noqa: E402
-from repro_torch.kernels.sell import sell_spmv  # noqa: E402
+from repro_torch.kernels.csr import csr_launch_plan, csr_spmv  # noqa: E402
+from repro_torch.kernels.ell import ell_launch_plan, ell_spmv  # noqa: E402
+from repro_torch.kernels.sell import sell_launch_plan, sell_spmv  # noqa: E402
 from repro_torch.sparse.formats import (  # noqa: E402
     BELL,
     CSR,
@@ -290,6 +317,7 @@ from repro_torch.sparse.formats import (  # noqa: E402
     csr_to_dense,
     ell_from_dense,
     ell_to_dense,
+    row_counts,
     sell_from_dense,
     sell_to_dense,
 )
@@ -340,6 +368,15 @@ def _csr_footprint(stats: MatrixStats, schedule: KernelSchedule) -> KernelFootpr
     )
 
 
+def _csr_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardLaunch:
+    # the storage is the matrix's own; B1 reads rows_per_block, unroll (its
+    # plan), accum_dtype and x_residency (the L1 / shared split), not nnz_tile
+    plan = csr_launch_plan(stats.n_rows, stats.nnz, schedule.rows_per_block,
+                           schedule.unroll, n_sms, n_cols=stats.n_cols)
+    return CardLaunch((stats.n_rows, stats.n_cols, stats.nnz),
+                      (_plan_key(plan), schedule.accum_dtype, schedule.x_residency))
+
+
 # --- ELL -------------------------------------------------------------------
 
 
@@ -348,7 +385,7 @@ def _ell_prepare(dense: np.ndarray, schedule: KernelSchedule, *, device=None) ->
     dense = np.asarray(dense)
     n_rows, _ = dense.shape
     rpb, nt = schedule.rows_per_block, schedule.nnz_tile
-    counts_max = int((dense != 0).sum(axis=1).max(initial=0))
+    counts_max = int(row_counts(dense).max(initial=0))
     width = ceil_to(max(counts_max, 1), nt)
     check_storage_bytes(ceil_to(n_rows, rpb) * width * 8, "ELL")
     mat = ell_from_dense(dense, min_width=width, device="cpu")
@@ -387,6 +424,15 @@ def _ell_footprint(stats: MatrixStats, schedule: KernelSchedule) -> KernelFootpr
         note="" if schedule.x_residency == "vmem"
         else "the ELL kernel reads x through the cached path only",
     )
+
+
+def _ell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardLaunch:
+    # planes (R, W) as _ell_prepare aligns them; B2's plan follows (R, W), and
+    # it reads unroll and accum_dtype
+    R = ceil_to(stats.n_rows, schedule.rows_per_block)
+    W = ceil_to(max(stats.max_nnz, 1), schedule.nnz_tile)
+    return CardLaunch((R, W), (_plan_key(ell_launch_plan(R, W, n_sms)), schedule.unroll,
+                               schedule.accum_dtype), R * W * 8 <= MAX_STORAGE_BYTES)
 
 
 # --- BELL ------------------------------------------------------------------
@@ -434,6 +480,18 @@ def _bell_footprint(stats: MatrixStats, schedule: KernelSchedule) -> KernelFootp
         2.0 * nnz, 2 * stored, hbm, 0.0, 0.0, steps, 1.0, vmem,
         vmem <= FAST_MEMORY_BYTES,
     )
+
+
+def _bell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardLaunch:
+    # blocks of br x 128 as _bell_prepare builds them (its guard too); B4
+    # takes its segments from the shapes and reads accum_dtype only
+    br = min(schedule.rows_per_block, 256)
+    nbr = ceil_to(stats.n_rows, br) // br
+    occ_bound = min(stats.nnz, nbr * (ceil_to(stats.n_cols, LANE) // LANE))
+    feasible = int(occ_bound) * br * LANE * 8 // max(nbr, 1) * nbr <= MAX_STORAGE_BYTES
+    mb = max(stats.block_occupancy(br, LANE)[1], 1) if feasible else 0
+    return CardLaunch((br, nbr, mb), (block_segments(nbr, mb, n_sms), schedule.accum_dtype),
+                      feasible)
 
 
 # --- SELL ------------------------------------------------------------------
@@ -501,6 +559,18 @@ def _sell_footprint(stats: MatrixStats, schedule: KernelSchedule) -> KernelFootp
     )
 
 
+def _sell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardLaunch:
+    # slices of C = rows_per_block rows, widths rounded up to nnz_tile: at
+    # one C the stored total fixes every width (each nnz_tile divides the
+    # next); B3's plan follows them, and it reads unroll and accum_dtype
+    C = schedule.rows_per_block
+    total, widest = stats.sell_storage(C, schedule.nnz_tile)
+    n_slices = -(-stats.n_rows // C)
+    plan = sell_launch_plan(n_slices, C, total / max(n_slices * C, 1), n_sms)
+    return CardLaunch((C, total, widest),
+                      (_plan_key(plan), schedule.unroll, schedule.accum_dtype))
+
+
 register_format(FormatSpec(
     name="csr",
     container=CSR,
@@ -510,6 +580,7 @@ register_format(FormatSpec(
     spmv=_csr_spmv,
     reference=_ref_csr,
     footprint=_csr_footprint,
+    card_launch=_csr_card_launch,
     priority=0,
     description="Compressed Sparse Row (warp per row; hub rows split over nonzero chunks)",
 ))
@@ -522,6 +593,7 @@ register_format(FormatSpec(
     spmv=_ell_spmv,
     reference=_ref_ell,
     footprint=_ell_footprint,
+    card_launch=_ell_card_launch,
     priority=10,
     description="ELLPACK dense value/column planes",
 ))
@@ -534,6 +606,7 @@ register_format(FormatSpec(
     spmv=_bell_spmv,
     reference=_ref_bell,
     footprint=_bell_footprint,
+    card_launch=_bell_card_launch,
     priority=20,
     description="Blocked ELL over (br x 128) dense blocks",
 ))
@@ -546,6 +619,7 @@ register_format(FormatSpec(
     spmv=_sell_spmv,
     reference=_ref_sell,
     footprint=_sell_footprint,
+    card_launch=_sell_card_launch,
     priority=30,
     description="Sliced ELL (SELL-C-q) ragged storage",
 ))

@@ -215,9 +215,10 @@ def cuda_time_ms(
     on the device is "late": its pair may hold the idle gap before ``fn``'s
     first launch, so the statistics leave it out, unless every repetition is
     late (then they keep all, and ``late`` says so). Returns median/mean/min
-    over the repetitions kept, their count, the late count, and the flush's
-    and the host enqueue's median milliseconds. Raises when no CUDA device
-    is present — a device time is never taken on the host.
+    and the quartiles (``q1_ms``, ``q3_ms``) over the repetitions kept,
+    their count, the late count, and the flush's and the host enqueue's
+    median milliseconds. Raises when no CUDA device is present — a device
+    time is never taken on the host.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
@@ -252,6 +253,8 @@ def cuda_time_ms(
         "median_ms": _median(kept),
         "mean_ms": sum(kept) / len(kept),
         "min_ms": kept[0],
+        "q1_ms": percentile(kept, 25),
+        "q3_ms": percentile(kept, 75),
         "reps": float(len(kept)),
         "late": float(sum(late)),
         "flush_ms": _median(sorted(flush_ms)),
