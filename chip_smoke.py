@@ -330,25 +330,40 @@ no network. Phases, each printing one JSON object on a line of its own:
                 format, on the pool's six matrices, the card's 112 CSR
                 points on the paper's next presets cut to n ~ 14,000;
                 every point timed through its kernel (CUDA events, L2
-                flushed), the storage converted once per geometry, each
-                point's ``y`` held against its kernel's plain version (a
-                bf16 point beyond 3e-2 is refused and listed, an fp32 one
-                beyond 1e-4 fails the run), launches equal to the timed
-                calls; the points, conversions, spread and wall seconds.
-                The dataset is saved and loaded back. ``measure_formats``
-                on ``rim`` launches each admitted format's kernel warmup +
-                reps times (no plain version on the card). (c) Per matrix the
-                default schedule's time, the measured best (ties within
-                the spread go to the default), the cost-model tuner's pick
-                and a ``decision_tree`` predictor's pick fitted leaving the
-                matrix out; per-knob accuracy and the ratios. (d) A tuner
-                fitted on the dataset (``AutoSpmvPredictor.fit`` ->
-                ``AutoSpMV`` -> ``AutoSpmvSession``) serves ``human_gene2``
-                and ``webgraph`` in compile-time mode: B1 launches equal the
-                requests, y against float64; B1 at its schedule against
-                phase 1's, in turns. (e) Run-time mode over the pool with
-                it: formats against the cost-model tuner's, each §5.3
-                decision with its gain and overhead in seconds.
+                flushed), the storage converted once per geometry (BELL
+                admitted by its true storage), each point's ``y`` held
+                against its kernel's plain version (beyond 1e-4 in fp32 or
+                3e-2 in bf16 fails the run), then each matrix's candidates
+                (within 5 % of their format's best) timed again in turns,
+                A B B A; launches equal to the timed calls, B4's counted;
+                the points, conversions, spread, re-timing, the §5.3
+                overhead at the served size (feature pass, the default
+                geometry's conversions) and wall seconds. The dataset is
+                saved and loaded back. ``measure_formats`` on ``rim``
+                launches each admitted format's kernel warmup + reps times
+                (no plain version on the card). (c) The card cost model's
+                constants fitted on the dataset (``fit_card_profile``) and
+                their fit; per matrix the default schedule's time, the
+                measured best (the re-timed label), a ``decision_tree``
+                predictor's pick fitted leaving the matrix out, the
+                reference-equal cost-model tuner's pick, the card cost
+                model's pick with its constants fitted leaving the matrix
+                out, and the pick of ``build_tuner()`` on the card; per-knob
+                accuracy and the ratios. (d) A tuner fitted on the dataset
+                (``AutoSpmvPredictor.fit``, the overhead predictor fitted on
+                the served-size samples, the card model fitted on the
+                dataset -> ``AutoSpMV`` -> ``AutoSpmvSession``) serves
+                ``human_gene2`` and ``webgraph`` in compile-time mode: B1
+                launches equal the requests, y against float64; B1 at its
+                schedule against phase 1's, in turns. (e) Run-time mode over
+                the pool with it: formats against the reference-equal
+                tuner's, each §5.3 decision with its gain and overhead in
+                seconds, and every pool conversion's predicted seconds
+                against the measured. (f) B3 at fp32 and bf16 in turns with
+                its parent (``csrc/yardsticks/spmv_sell_rowsum.cu``) at the
+                default on ``rim`` and at C 512, unroll 1 on
+                ``human_gene2`` and ``amazon0601``: y against the plain
+                version (bf16 within 3e-2), the fp32 bits the parent's.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
@@ -413,13 +428,24 @@ from repro_torch.core.features import (  # noqa: E402
     features_from_assignment_histogram,
 )
 from repro_torch.core.autotuner import AutoSpMV  # noqa: E402
-from repro_torch.core.dataset import TuningDataset, collect_dataset, is_measured  # noqa: E402
+from repro_torch.core.cache import CacheEntry  # noqa: E402
+from repro_torch.core.dataset import (  # noqa: E402
+    TuningDataset,
+    collect_dataset,
+    config_of,
+    is_measured,
+)
 from repro_torch.core.hpo import tune_model  # noqa: E402
 from repro_torch.core.objectives import (  # noqa: E402
+    CARD_TERMS,
     CalibratedCostModel,
+    CardCostModel,
+    CostModel,
     ObjectiveValues,
+    fit_card_profile,
     measure_formats,
 )
+from repro_torch.core.overhead import OverheadPredictor, overhead_samples  # noqa: E402
 from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig, _config_row  # noqa: E402
 from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
 from repro_torch.core.tuning_space import (  # noqa: E402
@@ -430,6 +456,7 @@ from repro_torch.core.tuning_space import (  # noqa: E402
     TuningConfig,
     card_compile_time_space,
     space_size,
+    tie_order,
 )
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bcsr import bcsr_spmv, bcsr_spmv_plain  # noqa: E402
@@ -501,6 +528,7 @@ from repro_torch.kernels.ops import (  # noqa: E402
     spmm,
 )
 from repro_torch.kernels.sell import (  # noqa: E402
+    SELL_CARRY_PRODUCTS,
     SELL_MAX_THREADS,
     _sell_launch,
     sell_launch_plan,
@@ -611,9 +639,10 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 N_TARGET = 14_000  # rows of the scaled pool matrices
-# BELL's storage guard (check_storage_bytes, 512 MiB at 8 bytes per element of
-# the occupancy bound) admits a block-structured matrix up to n ~ 8,000: that
-# is the largest BELL the dense-input API serves, so BELL runs at that size
+# BELL's checks and B4's numbers in the kernel table run at n = 8,000, the
+# size at which the reference's storage guard (its occupancy bound) admits
+# BELL at the default block height; the port's guard charges the true
+# storage and admits pkustk04 at n ~ 14,000 up to br = 32 (phase 17)
 BELL_MATRIX, BELL_N = "pkustk04@8000", 8_000
 N_REQUESTS = 16
 OBJECTIVES = ("latency", "energy", "power", "efficiency")
@@ -662,6 +691,12 @@ MAX_BLOCKS = 8
 # block, and BELL's storage guard (~8 bytes per element of rows x columns)
 # refuses any block above ~4,800 rows at 14,000 columns.
 FORCED_FORMATS = ("ell", "sell", "bell", "csr")
+# The card cost model plans one block on every matrix of PART_POOL (each
+# launch pays its floor), so the served partitioned paths would run neither
+# B3 nor B4: hetero's plan is pinned in the partitioned session's cache,
+# the forced plan above, and served through the cache's replay as a warm
+# plan cache is (phase 6, both executors, and observed (b))
+PINNED_MATRIX = "hetero"
 PLUGIN_FORMATS = ("bcsr", "ell", "bell", "csr")  # a BCSR block: the to_dense route
 
 # solve phase: webgraph at the scale that gives n = 14,011 (its CscEll pads
@@ -680,8 +715,9 @@ B1_UNROLLS = (1, 2, 4, 8)
 B1_HUB_ROWS = (256, 4096)
 B1_CHUNKS = (4096, 65536)
 # the parent designs of B1 (a warp per row), B6 (a warp per frontier entry),
-# B2 (a warp per row over every stored slot) and B5 (a CTA per stored tile,
-# a float atomic per run of rows, y zeroed first), built from
+# B2 (a warp per row over every stored slot), B5 (a CTA per stored tile, a
+# float atomic per run of rows, y zeroed first) and B3 (one bf16 running sum
+# per thread over its share of a row), built from
 # csrc/yardsticks/ beside the port's kernels and timed on the same inputs:
 # (source, argtypes of its <source>_launch)
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -690,6 +726,7 @@ YARDSTICKS = {
     "spmspv": ("spmspv_csc_warp", [_VP] * 5 + [_CI] * 5 + [_VP]),
     "ell": ("spmv_ell_warp", [_VP] * 4 + [_CI] * 5 + [_VP]),
     "fused": ("spmv_fused_scan", [_VP] * 6 + [_CI] * 5 + [_VP]),
+    "sell": ("spmv_sell_rowsum", [_VP] * 6 + [_CI] * 8 + [_VP] * 2),
 }
 YARDSTICK_DIR = os.path.join(HERE, "src", "repro_torch", "csrc", "yardsticks")
 PARENT = {}  # kernel: the parent design's launch entry
@@ -773,8 +810,14 @@ H100_BF16_FLOPS = 989e12  # dense bf16 peak, H100 SXM data sheet (at 700 W)
 # repetitions per point; requests per matrix served with the card-fitted
 # tuner; regressor records of each leave-one-out predictor
 TUNER_CSR_PRESETS = tuple(n for n in MATRIX_NAMES if n not in POOL)[:10]
-TUNER_REPS, TUNER_SERVE, TUNER_LOO_SAMPLES = 8, 4, 150
+TUNER_REPS, TUNER_SERVE, TUNER_LOO_SAMPLES = 6, 4, 150
 TUNER_CARVE_ROUNDS = 2  # in-turns rounds of B1's carveout arms
+# 17(f): B3 against its parent at the default on rim, and where one thread
+# of a row sums ~300 products (C = 512, unroll 1: P <= 2); rounds in turns
+TUNER_B3_CASES = (("rim", DEFAULT_SCHEDULE),
+                  ("human_gene2", KernelSchedule(rows_per_block=512, unroll=1)),
+                  ("amazon0601", KernelSchedule(rows_per_block=512, unroll=1)))
+TUNER_B3_ROUNDS = 2
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -1413,7 +1456,7 @@ def check_constants() -> dict:
     their kernels, as the built kernels export them; raises where Python's
     differ."""
     got = {}
-    for source, n in (("spmm_ell", 2), ("spmv_sell", 1), ("spmv_csr", 3), ("spmspv_csc", 2),
+    for source, n in (("spmm_ell", 2), ("spmv_sell", 2), ("spmv_csr", 3), ("spmspv_csc", 2),
                       ("spmv_ell", 1), ("spmv_fused", 8)):
         out = (ctypes.c_int * n)()
         fn = getattr(kbuild.load_library(source), f"{source}_constants")
@@ -1421,7 +1464,7 @@ def check_constants() -> dict:
         fn(out)
         got[source] = list(out)
     want = {"spmm_ell": [SPMM_CHUNK, SPMM_WARPS_PER_CTA],
-            "spmv_sell": [SELL_MAX_THREADS],
+            "spmv_sell": [SELL_MAX_THREADS, SELL_CARRY_PRODUCTS],
             "spmv_csr": [CSR_MAX_THREADS, CSR_MAX_HUBS, CSR_ROUND],
             "spmspv_csc": [SPMSPV_SLOTS, SPMSPV_CTA_WARPS[-1]],
             "spmv_ell": [ELL_WARPS_PER_CTA],
@@ -1675,6 +1718,24 @@ def check_block_case(name: str, rows, dense: np.ndarray, sched: KernelSchedule,
                     **design}
         del mat
     return out
+
+
+def pin_partitioned(session, dense: np.ndarray, fmts) -> dict:
+    """Put the forced plan of ``dense`` (``fmts`` round-robin over their
+    count of blocks, the default schedule) into ``session``'s plan cache at
+    the key ``partitioned_optimize`` looks up, so requests for it replay the
+    plan: the cache hit path a restarted server takes. Its blocks carry no
+    modelled latency (no prior for the bandit's arms)."""
+    plan = forced_plan(dense, fmts, len(fmts), DEFAULT_SCHEDULE)
+    entry = CacheEntry(
+        bucket=session.cache.bucket_of(extract_features(dense)), objective="latency",
+        mode=f"part:max{MAX_BLOCKS}", fmt="+".join(plan.formats),
+        schedule=DEFAULT_SCHEDULE.as_dict(),
+        predicted={"latency": 0.0, "monolithic_latency": 0.0}, n_blocks=plan.n_blocks,
+        blocks=[bp.as_dict() for bp in plan.blocks], monolithic_fmt=plan.monolithic_fmt)
+    session.cache.put(entry)
+    return {"matrix": PINNED_MATRIX, "formats": list(plan.formats),
+            "blocks": [(bp.block.row_start, bp.block.row_end) for bp in plan.blocks]}
 
 
 def run_forced(dense: np.ndarray, fmts, x: np.ndarray) -> dict:
@@ -4396,6 +4457,8 @@ def observed_partitioned(tuner, part_pool, tmp: Path, cache=None
     for f in warmups:
         want[f] = want.get(f, 0) + 1
     check_observed_launches("observed(partitioned)", got, want)
+    if cache is not None and not (got["sell"] and got["bell"]):
+        raise AssertionError(f"observed(partitioned): the pinned plan served no B3 or B4: {got}")
     payload = {"seconds": seconds, "requests": rows, "blocks_timed": timed,
                "warmup_blocks": per_format(warmups),
                "launches": got, "disabled": disabled_arms(session.adaptive),
@@ -4405,9 +4468,11 @@ def observed_partitioned(tuner, part_pool, tmp: Path, cache=None
 
 
 def observed_calibration(tuner, runtime_session, part_session, tmp: Path) -> dict:
-    """(c) ``calibrate()`` on both sessions: corrections per format; the
-    partitioned session's ``part:*`` plans evicted; fresh sessions over the
-    same cache paths load the files, on the H100 profile."""
+    """(c) ``calibrate()`` on both sessions: corrections per format, over
+    the model that scored their plans (the card-labelled tuner's
+    ``CardCostModel``); the partitioned session's ``part:*`` plans evicted;
+    fresh sessions over the same cache paths load the files, on the H100
+    profile and the same base."""
     out = {}
     for name, session in (("runtime", runtime_session), ("partitioned", part_session)):
         n_part = sum(e.mode.startswith("part:") for e in session.cache.entries())
@@ -4416,10 +4481,15 @@ def observed_calibration(tuner, runtime_session, part_session, tmp: Path) -> dic
         fresh = AutoSpmvSession(tuner, cache_path=session.cache_path)
         loaded = fresh.cost_model
         if not (isinstance(loaded, CalibratedCostModel) and loaded.hw.name == "h100_sxm"
+                and isinstance(model.base, CardCostModel)
+                and isinstance(loaded.base, CardCostModel)
+                and loaded.base.profile == model.base.profile
                 and corrections_of(loaded) == corrections_of(model) and left == 0):
-            raise AssertionError(f"calibration ({name}): loaded {loaded!r}, "
+            raise AssertionError(f"calibration ({name}): loaded {loaded!r} over "
+                                 f"{type(getattr(loaded, 'base', None)).__name__}, "
                                  f"part plans left {left}")
         out[name] = {"corrections": corrections_of(model), "hardware": loaded.hw.name,
+                     "base": f"{type(loaded.base).__name__}({loaded.base.profile.name})",
                      "part_plans_evicted": n_part,
                      "file": os.path.relpath(str(session.cache_path), str(tmp))}
     if not out["partitioned"]["part_plans_evicted"]:
@@ -4537,11 +4607,9 @@ def card_point_check(errs: dict):
     """``collect_dataset``'s ``on_point``: each timed point's ``y`` (its last
     call) against the kernel's plain version on the same storage, on the
     card; the worst scaled error per format and accumulator kept in
-    ``errs``. A float32 point beyond 1e-4, or any non-finite ``y``, fails
-    the run. A bfloat16 point beyond 3e-2 is refused (infeasible in the
-    dataset, so the tuner never serves it) and listed: the kernel's bf16
-    running sums over long rows (B3 at C >= 256 takes P <= 2 threads a
-    row) leave its rounding order, not the plain version's."""
+    ``errs``. A point beyond its tolerance (1e-4 in float32, 3e-2 in
+    bfloat16), or any non-finite ``y``, fails the run: since B3 folds its
+    bf16 sums into a float32 carry no point is refused for precision."""
     def check(name, cfg, kernel, x, y):
         ref = kernel_calls(cfg.fmt, kernel.mat, x, cfg.schedule)[1]()
         n = kernel.mat.shape[0]
@@ -4550,18 +4618,13 @@ def card_point_check(errs: dict):
         tol = tol_of(cfg.schedule)
         at = f"{name}/{sched_tag(cfg.schedule)}_{cfg.schedule.x_residency}"
         row = errs.setdefault(f"{cfg.fmt}_{cfg.schedule.accum_dtype}",
-                              {"points": 0, "worst": 0.0, "worst_at": None, "tol": tol,
-                               "refused": []})
+                              {"points": 0, "worst": 0.0, "worst_at": None, "tol": tol})
         row["points"] += 1
         if err >= row["worst"]:
             row.update(worst=err, worst_at=at)
-        fp32 = cfg.schedule.accum_dtype == "float32"
-        if not bool(torch.isfinite(got).all()) or (fp32 and err > tol):
+        if not bool(torch.isfinite(got).all()) or err > tol:
             raise AssertionError(f"tuner: {at} ({cfg.fmt}) y off its plain version: "
                                  f"{err:.3e} > {tol:.0e}")
-        if err > tol:
-            row["refused"].append([at, err])
-            return False
         return True
     return check
 
@@ -4583,6 +4646,25 @@ def measured_at(ds, matrix: str, cfg) -> float:
         if is_measured(r) and r.config == cfg:
             return r.latency
     raise AssertionError(f"tuner: no measured record of {cfg} for {matrix}")
+
+
+def in_turns_at(ds, matrix: str, cfg) -> float:
+    """Seconds of ``cfg``: its in-turn median where it was a re-timed
+    candidate, else its first pass's (it was then more than
+    ``RETIME_WITHIN`` slower than its format's best)."""
+    rt = ds.meta["retime"].get(matrix, {"candidates": [], "median_ms": []})
+    for c, ms in zip(rt["candidates"], rt["median_ms"]):
+        if config_of(c) == cfg:
+            return 1e-3 * ms
+    return measured_at(ds, matrix, cfg)
+
+
+def fastest_in_turns(ds, matrix: str, fmt: str = "csr") -> float:
+    """The least in-turn median of ``fmt``'s re-timed candidates (seconds):
+    the label is the tie rule's pick within the in-turn spread of it."""
+    rt = ds.meta["retime"][matrix]
+    return 1e-3 * min(ms for c, ms in zip(rt["candidates"], rt["median_ms"])
+                      if c["fmt"] == fmt)
 
 
 def tuner_dataset(pool: dict, shapes: dict) -> tuple:
@@ -4610,9 +4692,10 @@ def tuner_dataset(pool: dict, shapes: dict) -> tuple:
     for n, d in pool.items():
         shapes[n] = SimpleNamespace(n_rows=d.shape[0], n_cols=d.shape[1],
                                     nnz=int(np.count_nonzero(d)))
-    ds = TuningDataset(runtime.records + csr_only.records,
-                       {**runtime.meta, "spread": {**runtime.meta["spread"],
-                                                   **csr_only.meta["spread"]}})
+    ds = TuningDataset(runtime.records + csr_only.records, {
+        **runtime.meta, **{k: {**runtime.meta[k], **csr_only.meta[k]}
+                           for k in ("spread", "conversions", "retime", "overhead",
+                                     "card_terms")}})
     path = Path(HERE) / "build" / "tuner" / "card_dataset.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     ds.save(path)
@@ -4633,6 +4716,21 @@ def tuner_dataset(pool: dict, shapes: dict) -> tuple:
     per_fmt = {}
     for r in measured:
         per_fmt[r.config.fmt] = per_fmt.get(r.config.fmt, 0) + 1
+    bell = {}  # block heights the true storage guard admits, per matrix
+    for r in measured:
+        if r.config.fmt == "bell":
+            row = bell.setdefault(r.matrix, {"admitted": set(), "refused": set()})
+            row["admitted" if r.feasible else "refused"].add(min(r.config.schedule.rows_per_block, 256))
+    retimed = {}
+    for m, rt in ds.meta["retime"].items():
+        label = ds.best_record(m, "latency", formats=("csr",)).config
+        first = TuningDataset(ds.for_matrix(m), {"spread": ds.meta["spread"]}).best_record(
+            m, "latency", formats=("csr",)).config
+        retimed[m] = {"candidates": len(rt["candidates"]), "calls": rt["calls"],
+                      "seconds": rt["seconds"], "spread": rt["spread"],
+                      "csr_label": sched_tag(label.schedule) + "_" + label.schedule.x_residency,
+                      "first_pass_csr_label": sched_tag(first.schedule) + "_"
+                      + first.schedule.x_residency}
     report = {
         "matrices": {"runtime_space": list(pool), "csr_space": list(TUNER_CSR_PRESETS)},
         "points": len(measured), "points_by_format": per_fmt,
@@ -4644,20 +4742,53 @@ def tuner_dataset(pool: dict, shapes: dict) -> tuple:
         "conversions": {**runtime.meta["conversions"], **csr_only.meta["conversions"]},
         "reps": TUNER_REPS, "calls": calls, "launches": got, "seconds": secs, "wall_s": wall,
         "spread": ds.meta["spread"], "y_vs_plain": errs, "file_bytes": path.stat().st_size,
+        "bell": {m: {k: sorted(v) for k, v in row.items()} for m, row in bell.items()},
+        "bell_launches": calls["bell"], "retime": retimed, "overhead": ds.meta["overhead"],
         "measure_formats": {"matrix": "rim", "ms": {f: 1e3 * t for f, t in per_format.items()},
                             "launches": got_mf, "seconds": time.perf_counter() - t0}}
     return ds, report
 
 
-def tuner_labels(ds, model_tuner, shapes: dict) -> dict:
+def card_model_pick(ds, matrix: str, profile) -> TuningConfig:
+    """The card cost model's pick among a matrix's CSR points: its least
+    latency under ``profile`` from the launches' regressors the collection
+    kept (``meta["card_terms"]``), ties by ``tie_order``."""
+    terms = {config_of(json.loads(k)): x for k, x in ds.meta["card_terms"][matrix]}
+    return min((c for c in terms if c.fmt == "csr"),
+               key=lambda c: (profile.seconds("csr", terms[c]), tie_order(c)))
+
+
+def profile_quality(ds, profile) -> dict:
+    """Per format: points, and the median and 90th percentile of |modelled /
+    measured - 1| over the measured points."""
+    errs = {}
+    for m, by_point in ds.meta["card_terms"].items():
+        measured = {r.config: r.latency for r in ds.for_matrix(m) if is_measured(r) and r.feasible}
+        for k, x in by_point:
+            c = config_of(json.loads(k))
+            if c in measured and profile.of(c.fmt) is not None:
+                errs.setdefault(c.fmt, []).append(
+                    abs(profile.seconds(c.fmt, x) / measured[c] - 1.0))
+    return {f: {"points": len(v), "median": float(np.median(v)),
+                "p90": float(np.percentile(v, 90))} for f, v in errs.items()}
+
+
+def tuner_labels(ds, ref_tuner, card_tuner, shapes: dict) -> dict:
     """17(c): per matrix the default schedule's measured time, the measured
-    best (ties within the spread to the default), the cost-model tuner's
-    pick and a ``decision_tree`` predictor's pick fitted leaving the matrix
-    out, each at its point of the card's CSR space; per-knob accuracy and
-    the ratios between them."""
+    best (the re-timed label), a ``decision_tree`` predictor's pick fitted
+    leaving the matrix out, the reference-equal cost-model tuner's pick, the
+    card cost model's pick (its constants fitted leaving the matrix out:
+    ``fit_card_profile``) and the card-labelled tuner's (``build_tuner()``
+    on the card), each at its point of the card's CSR space; per-knob
+    accuracy and the ratios between them. The ratios ``*_over_best`` divide
+    first-pass times by the label's, which the tie rule may pick up to the
+    in-turn spread above the fastest point (so they can fall below 1);
+    ``over_fastest_in_turns`` divides each pick's in-turn time (its
+    first pass's where it was not re-timed) by the least in-turn median."""
     csr_space = card_compile_time_space(sm_count(DEVICE))
     default = TuningConfig("csr", DEFAULT_SCHEDULE)
     rows, hits = [], {k: 0 for k in ALL_KNOBS}
+    tag = lambda c: sched_tag(c.schedule) + "_" + c.schedule.x_residency
     for m in ds.matrices:
         feats = ds.for_matrix(m)[0].features
         best = ds.best_record(m, "latency", formats=("csr",))
@@ -4666,37 +4797,109 @@ def tuner_labels(ds, model_tuner, shapes: dict) -> dict:
         pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=TUNER_LOO_SAMPLES,
                                                  device=DEVICE)).fit(held)
         fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = card_model_pick(ds, m, fit_card_profile(ds, exclude=(m,)))
+        card_fit_s = time.perf_counter() - t0
         picked = csr_space.point_of(shapes[m], TuningConfig(
             "csr", pred.predict_schedule(feats, "latency")))
         model = csr_space.point_of(shapes[m], TuningConfig(
-            "csr", model_tuner.plan_compile_time(feats, "latency").schedule))
+            "csr", ref_tuner.plan_compile_time(feats, "latency").schedule))
+        served = csr_space.point_of(shapes[m], TuningConfig(
+            "csr", card_tuner.plan_compile_time(feats, "latency").schedule))
         t_def, t_best = measured_at(ds, m, default), best.latency
-        t_pred, t_model = measured_at(ds, m, picked), measured_at(ds, m, model)
+        turns = {k: 1e3 * in_turns_at(ds, m, c) for k, c in (
+            ("default", default), ("best", best.config), ("loo", picked), ("model", model),
+            ("card_model", card), ("card_tuner", served))}
         for knob in ALL_KNOBS:
             field_ = KNOBS[knob][0]
             hits[knob] += getattr(picked.schedule, field_) == getattr(best.config.schedule, field_)
         rows.append({"matrix": m, "default_ms": 1e3 * t_def, "best_ms": 1e3 * t_best,
-                     "best": sched_tag(best.config.schedule) + "_" + best.config.schedule.x_residency,
-                     "loo_ms": 1e3 * t_pred,
-                     "loo": sched_tag(picked.schedule) + "_" + picked.schedule.x_residency,
-                     "model_ms": 1e3 * t_model,
-                     "model": sched_tag(model.schedule) + "_" + model.schedule.x_residency,
+                     "best": tag(best.config), "loo_ms": 1e3 * measured_at(ds, m, picked),
+                     "loo": tag(picked), "model_ms": 1e3 * measured_at(ds, m, model),
+                     "model": tag(model), "card_model_ms": 1e3 * measured_at(ds, m, card),
+                     "card_model": tag(card),
+                     "card_tuner_ms": 1e3 * measured_at(ds, m, served), "card_tuner": tag(served),
+                     "fastest_ms": 1e3 * fastest_in_turns(ds, m), "turns_ms": turns,
                      "spread": ds.meta["spread"][m],
                      "beyond_spread": t_def > t_best * (1.0 + ds.meta["spread"][m]),
-                     "fit_s": fit_s})
+                     "fit_s": fit_s, "card_fit_s": card_fit_s})
     def ratios(num, den):
         r = np.array([row[num] / row[den] for row in rows])
         return {"geomean": float(np.exp(np.log(r).mean())), "max": float(r.max())}
+
+    def over_fastest(key):  # in-turn times where there are any, over the fastest
+        r = np.array([row["turns_ms"][key] / row["fastest_ms"] for row in rows])
+        return {"geomean": float(np.exp(np.log(r).mean())), "min": float(r.min()),
+                "max": float(r.max())}
     return {"matrices": rows, "knob_accuracy": {k: hits[k] / len(rows) for k in ALL_KNOBS},
             "card_knobs": list(CARD_KNOBS),
             "default_over_best": ratios("default_ms", "best_ms"),
             "default_over_loo": ratios("default_ms", "loo_ms"),
             "loo_over_best": ratios("loo_ms", "best_ms"),
             "model_over_best": ratios("model_ms", "best_ms"),
+            "card_model_over_best": ratios("card_model_ms", "best_ms"),
+            "card_tuner_over_best": ratios("card_tuner_ms", "best_ms"),
             "default_over_model": ratios("default_ms", "model_ms"),
+            "over_fastest_in_turns": {k: over_fastest(k) for k in (
+                "default", "best", "loo", "model", "card_model", "card_tuner")},
             "beyond_spread": sum(r["beyond_spread"] for r in rows),
             "best_bf16": sum(r["best"].endswith(("bf16_vmem", "bf16_stream")) for r in rows),
             "best_stream": sum(r["best"].endswith("_stream") for r in rows)}
+
+
+def parent_sell(mat, x: torch.Tensor, plan: dict, schedule: KernelSchedule) -> torch.Tensor:
+    """B3's parent design (``csrc/yardsticks/spmv_sell_rowsum.cu``) under
+    ``plan`` on the same storage: y (n_slices, C)."""
+    n_slices = mat.slice_width.shape[0]
+    y = torch.empty((n_slices, mat.C), dtype=torch.float32, device=DEVICE)
+    err = PARENT["sell"](mat.data.data_ptr(), mat.cols.data_ptr(), mat.slice_ptr.data_ptr(),
+                         mat.slice_width.data_ptr(), x.data_ptr(), y.data_ptr(), n_slices,
+                         mat.C, schedule.unroll, int(schedule.accum_dtype == "bfloat16"),
+                         plan["row_threads"], plan["slices_per_cta"], plan["threads"],
+                         plan["ctas"], None, torch.cuda.current_stream(DEVICE).cuda_stream)
+    kbuild.check_launch(err, "spmv_sell_rowsum")
+    return y
+
+
+def tuner_sell_bf16(pool: dict) -> dict:
+    """17(f): B3 at fp32 and bf16 against its parent (one bf16 running sum
+    per thread), on the same storage and plan, in turns (parent, B3, B3,
+    parent; CUDA events, L2 flushed), through the launch helpers (the
+    wrapper's counter does not move): y against the plain version, and
+    whether the fp32 bits are the parent's. fp32 bits that differ, or a y
+    beyond its tolerance, fail."""
+    rng = np.random.default_rng(SEED + 176)
+    rows = []
+    for name, base in TUNER_B3_CASES:
+        dense = pool[name]
+        n = dense.shape[0]
+        x = torch.as_tensor(rng.normal(size=dense.shape[1]).astype(np.float32), device=DEVICE)
+        for acc in ("float32", "bfloat16"):
+            sched = base.replace(accum_dtype=acc)
+            mat = prepare(dense, "sell", sched, device=DEVICE)
+            n_slices = mat.slice_width.shape[0]
+            plan = sell_launch_plan(n_slices, mat.C, mat.data.shape[0] / (n_slices * mat.C),
+                                    sm_count(DEVICE))
+            args = (mat.data, mat.cols, mat.slice_ptr, mat.slice_width, x)
+            arms = {"parent": lambda: parent_sell(mat, x, plan, sched),
+                    "b3": lambda: _sell_launch(*args, mat.C, plan, sched)}
+            plain = sell_spmv_plain(*args, mat.C, sched).reshape(-1)[:n]
+            ys = {a: f().reshape(-1)[:n] for a, f in arms.items()}
+            err = {a: float((y - plain).abs().max() / (plain.abs().max() + 1e-9))
+                   for a, y in ys.items()}
+            ms = {a: [] for a in arms}
+            for _ in range(TUNER_B3_ROUNDS):
+                for a in ("parent", "b3", "b3", "parent"):
+                    ms[a].append(timed(arms[a]))
+            row = {"matrix": name, "schedule": sched_tag(sched), "row_threads": plan["row_threads"],
+                   "err_vs_plain": err, "tol": tol_of(sched),
+                   "same_bits": bool(torch.equal(ys["b3"], ys["parent"])),
+                   "median_ms": {a: float(np.median(v)) for a, v in ms.items()}, "runs_ms": ms}
+            rows.append(row)
+            if (acc == "float32" and not row["same_bits"]) or err["b3"] > tol_of(sched):
+                raise AssertionError(f"tuner: B3 against its parent: {row}")
+            del mat
+    return {"cases": rows}
 
 
 def b1_in_turns(mat, x: torch.Tensor, before: KernelSchedule, after: KernelSchedule,
@@ -4826,26 +5029,41 @@ def tuner_serve(card_tuner, pool: dict, web: np.ndarray, fps: dict,
             "b1_in_turns": timings}, got
 
 
-def tuner_runtime(card_tuner, model_tuner, pool: dict, fps: dict) -> tuple[dict, dict]:
+def tuner_runtime(card_tuner, ref_tuner, ds, pool: dict, fps: dict) -> tuple[dict, dict]:
     """17(e): run-time mode over the pool with the card-fitted tuner, its
-    format against the model-fitted tuner's, each §5.3 decision with its
-    gain and overhead in seconds; converted kernels against float64."""
+    format against the reference-equal tuner's, each §5.3 decision with its
+    gain, its overhead in seconds and its conversion's predicted and
+    measured seconds (measured: the collection's conversion of the default
+    geometry at this size, ``meta["overhead"]``; predicted by a predictor
+    fitted with the matrix left out, the graded figure, median and worst,
+    and by the card tuner's own, fitted on these samples); converted
+    kernels against float64."""
     session = AutoSpmvSession(card_tuner)
     rng = np.random.default_rng(SEED + 172)
     reset_launches()
     rows = []
+    conversions = []
+    samples = tuner_overhead_samples(ds)
     for n, dense in pool.items():
         feats = extract_features(dense)
         x = rng.normal(size=dense.shape[1]).astype(np.float32)
+        held = OverheadPredictor().fit([s_ for s_ in samples if s_.matrix != n])
+        for fmt, secs in ds.meta["overhead"][n]["conversion_s"].items():
+            if secs is not None:
+                conversions.append({"matrix": n, "format": fmt, "measured_s": secs,
+                                    "predicted_s": card_tuner.overhead.predict_c(feats, fmt),
+                                    "predicted_loo_s": held.predict_c(feats, fmt)})
         for obj in OBJECTIVES:
-            theirs = model_tuner.plan_run_time(feats, obj)
+            theirs = ref_tuner.plan_run_time(feats, obj)
             ours = card_tuner.plan_run_time(feats, obj)
             row = {"matrix": n, "objective": obj, "format": ours.best_format,
                    "model_format": theirs.best_format, "agree": ours.best_format == theirs.best_format,
                    "latency_gain_s": ours.latency_gain_per_iter,
                    "model_latency_gain_s": theirs.latency_gain_per_iter,
                    "gain_10k_s": 10_000 * ours.latency_gain_per_iter,
-                   "overhead_s": ours.overhead_s}
+                   "overhead_s": ours.overhead_s, "conversion_s": ours.convert_overhead_s,
+                   "measured_conversion_s": ds.meta["overhead"][n]["conversion_s"].get(
+                       ours.best_format)}
             try:
                 res = session.run_time_optimize(dense, obj, n_iterations=10_000,
                                                 fingerprint=fps[n])
@@ -4868,17 +5086,43 @@ def tuner_runtime(card_tuner, model_tuner, pool: dict, fps: dict) -> tuple[dict,
         if "kernel" in r:
             want[r["kernel"]] += 1
     check_launches("tuner(runtime)", got, want)
+    # graded on the leave-one-out predictions only: the card tuner's
+    # predictor was fitted on these very samples
+    loo = [c["predicted_loo_s"] / c["measured_s"] for c in conversions]
+    worst = max(range(len(loo)), key=lambda i: abs(np.log(max(loo[i], 1e-12))))
     return {"decisions": rows, "agree": sum(r["agree"] for r in rows), "of": len(rows),
-            "converted": sum(bool(r.get("convert")) for r in rows), "launches": got}, got
+            "converted": sum(bool(r.get("convert")) for r in rows), "launches": got,
+            "conversions": conversions,
+            "predicted_over_measured": {
+                "median_loo": float(np.median(loo)), "worst_loo": loo[worst],
+                "worst_loo_at": [conversions[worst]["matrix"], conversions[worst]["format"]],
+                "within_2x_loo": sum(0.5 <= r <= 2.0 for r in loo), "of": len(loo),
+                "zero_loo": sum(c["predicted_loo_s"] <= 0.0 for c in conversions),
+                "median_in_sample": float(np.median([c["predicted_s"] / c["measured_s"]
+                                                     for c in conversions]))},
+            "overhead_samples": [s_.matrix for s_ in samples]}, got
 
 
-def run_tuner_phase(model_tuner, pool: dict, web: np.ndarray, fps: dict,
+def tuner_overhead_samples(ds) -> list:
+    """The collection's §5.3 samples at the served size that carry the
+    conversions run-time mode weighs (CSR, ELL, SELL): a pool matrix whose
+    default ELL the guard refuses, and the presets (CSR only), are left
+    out, since ``OverheadPredictor.fit`` learns the formats every sample
+    has; BELL, refused at its default block height on every pool matrix,
+    takes the predictor's fallback (the dearest format's prediction)."""
+    return [s_ for s_ in overhead_samples(ds) if {"csr", "ell", "sell"} <= set(s_.c_latency)]
+
+
+def run_tuner_phase(tuner, pool: dict, web: np.ndarray, fps: dict,
                     csr_schedule, web_schedule) -> tuple[dict, dict]:
     """Phase 17: the tuner learns the card. (a) B1's carveout knob, (b) the
-    card's dataset, (c) the labels it gives against the default and the
-    cost-model tuner, leave-one-out, (d) compile-time serving with the
-    card-fitted tuner, (e) run-time mode with it. Returns (payload,
-    launches of the served paths (d) and (e))."""
+    card's dataset (BELL by its true storage, the candidates re-timed in
+    turns, the §5.3 overhead at the served size), (c) the labels against
+    the default, the reference-equal and the card cost models and
+    leave-one-out, (d) compile-time serving with the card-fitted tuner, (e)
+    run-time mode with it, (f) B3's bf16 sums against its parent. ``tuner``
+    is ``build_tuner()`` on the card (labelled by ``CardCostModel``).
+    Returns (payload, launches of the served paths (d) and (e))."""
     out, secs = {}, {}
     t0 = time.perf_counter()
     out["carveout"] = tuner_carveout(pool, web, csr_schedule, web_schedule)
@@ -4888,17 +5132,27 @@ def run_tuner_phase(model_tuner, pool: dict, web: np.ndarray, fps: dict,
     ds, out["dataset"] = tuner_dataset(pool, shapes)
     secs["b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["labels"] = tuner_labels(ds, model_tuner, shapes)
+    ref_tuner = build_tuner(model=CostModel())  # the reference-equal labels, on the card
+    profile = fit_card_profile(ds, source="this run's phase 17(b)")
+    out["card_profile"] = {"terms": list(CARD_TERMS), "coef": dict(profile.coef),
+                           "fit_quality": profile_quality(ds, profile),
+                           "committed_quality": profile_quality(ds, CardCostModel().profile)}
+    out["labels"] = tuner_labels(ds, ref_tuner, tuner, shapes)
     secs["c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=DEVICE)).fit(ds)
-    card_tuner = AutoSpMV(pred, model_tuner.overhead, device=DEVICE, dataset=ds)
+    overhead = OverheadPredictor().fit(tuner_overhead_samples(ds))
+    card_tuner = AutoSpMV(pred, overhead, device=DEVICE, dataset=ds,
+                          cost_model=CardCostModel(profile))
     out["fit_s"] = time.perf_counter() - t0
     out["serve"], got = tuner_serve(card_tuner, pool, web, fps, csr_schedule, web_schedule)
     secs["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["runtime"], got_rt = tuner_runtime(card_tuner, model_tuner, pool, fps)
+    out["runtime"], got_rt = tuner_runtime(card_tuner, ref_tuner, ds, pool, fps)
     secs["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sell_bf16"] = tuner_sell_bf16(pool)
+    secs["f"] = time.perf_counter() - t0
     out["part_seconds"] = secs
     return out, {k: got[k] + got_rt[k] for k in got}
 
@@ -4972,10 +5226,12 @@ def main() -> None:
         if fmt in INSTANCE:
             checked[fmt]["registers_by_instance"] = kernel_registers(
                 built["log"], SOURCE[fmt], INSTANCE[fmt])
-        if fmt == "csr":  # [registers, spill bytes] of the served instances (unroll 8)
+        if fmt == "csr":  # [registers, spill bytes] of the instances phase 4 serves
+            served = (f"{'bf16' if csr_schedule.accum_dtype == 'bfloat16' else 'f32'}_"
+                      f"{csr_schedule.unroll}")
             checked[fmt]["registers_served"] = {
                 k: v for k, v in checked[fmt]["registers_by_instance"].items()
-                if k.endswith(("f32_8", "bf16_8"))}
+                if k.endswith(served)}
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
@@ -5069,8 +5325,8 @@ def main() -> None:
         except InfeasibleConfig as exc:
             if (fmt, n) not in infeasible_ok:
                 raise
-            # the storage guard refusing BELL at n ~ 14,000 is the reference
-            # behaviour; it is reported, not hidden
+            # BELL's storage at the default block height (64) exceeds the
+            # guard's 512 MiB at n ~ 14,000 for these two; reported, not hidden
             direct.append({"format": fmt, "matrix": n, "infeasible": str(exc)})
             continue
         y = kernel(x).cpu().numpy()
@@ -5096,6 +5352,7 @@ def main() -> None:
     xs = [rng.normal(size=part_pool[n].shape[1]).astype(np.float32) for n in names]
     x_of = dict(zip(names, xs))  # one vector per matrix for the forced runs and timings
     part_session = AutoSpmvSession(tuner)
+    pinned = pin_partitioned(part_session, part_pool[PINNED_MATRIX], FORCED_FORMATS)
     phase_launches = {}
     results = {}
     for fused in (False, True):
@@ -5108,6 +5365,8 @@ def main() -> None:
         want = ({**{f: 0 for f in BLOCK_FORMATS}, "fused": N_PART_REQUESTS} if fused
                 else {**blocks_served, "fused": 0})
         check_launches(f"partitioned(fused={fused})", got, want)
+        if not fused and not (got["sell"] and got["bell"]):
+            raise AssertionError(f"partitioned: the pinned plan launched no B3 or B4: {got}")
         results["fused" if fused else "sequential"] = rows
         phase_launches["fused" if fused else "sequential"] = got
     reset_launches()
@@ -5129,7 +5388,7 @@ def main() -> None:
         {"rid": r["rid"], "matrix": r["matrix"], "rows": r["bell_blocks"]}
         for r in results["sequential"] if r["bell_blocks"]]
     emit("partitioned", seconds=time.perf_counter() - t0, requests=results,
-         forced=forced, bell_blocks=bell_at_full_width, launches=phase_launches,
+         forced=forced, pinned=pinned, bell_blocks=bell_at_full_width, launches=phase_launches,
          session=part_stats, composites=composites)
 
     # ---- B4 and B7 at the BELL block shape the partitioned path launches ---

@@ -106,6 +106,8 @@ class AutoSpMV:
     dataset: object | None = None  # the §5.4 TuningDataset the predictor was
     # fit on, when its constructor kept it — telemetry refits merge its labels so
     # a handful of fleet measurements never erase offline coverage
+    cost_model: object | None = None  # the model that labelled that dataset;
+    # partitioned planning scores with it (None: the reference-equal CostModel)
 
     # ------------------------------------------------------------- planning
     def plan_compile_time(
@@ -171,7 +173,8 @@ class AutoSpMV:
         Unlike ``plan_compile_time``/``plan_run_time`` this takes the dense
         matrix, not just features: block boundaries and per-block stats need
         the actual row histogram. The import is lazy — ``repro_torch.partition``
-        sits above ``repro_torch.core`` in the layering.
+        sits above ``repro_torch.core`` in the layering. ``cost_model``
+        (``None``: the tuner's own, ``self.cost_model``) scores the plans.
         """
         from repro_torch.partition.partitioner import SUPPORTED_BLOCK_COUNTS
         from repro_torch.partition.plan import plan_partitioned
@@ -181,7 +184,7 @@ class AutoSpMV:
         )
         return plan_partitioned(
             self.predictor, dense, objective, block_counts=counts,
-            cost_model=cost_model,
+            cost_model=self.cost_model if cost_model is None else cost_model,
         )
 
     # ------------------------------------------------------------ compile time

@@ -22,6 +22,10 @@ The paper measures these four objectives with NVML power sensors on two GPUs
   ``nnz_tile``-step grids), not the card's; where a dataset holds measured
   latencies, the labels and the latency regressor take those, and energy,
   power and efficiency stay the model's.
+* ``CardCostModel`` — the card's kernels, B1-B4, as they launch: what each
+  launch does (``FormatSpec.card_work``, from the integer launch plans)
+  priced by constants fitted on the card (``CardProfile``, ``H100_CARD``,
+  ``fit_card_profile``). ``build_tuner`` labels with it on a CUDA device.
 
 Energy accounting follows the paper's measurement protocol (§6.3): idle
 power is EXCLUDED — E = FLOPs*e_flop + HBM_bytes*e_hbm + fast_touch*e_vmem +
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -203,6 +208,194 @@ class CostModel:
 
 
 # ---------------------------------------------------------------------------
+# the card's cost model: the launches B1-B4 make, priced by a fitted profile
+# ---------------------------------------------------------------------------
+
+# the regressors of a CardWork, in the order of a profile's coefficients
+CARD_TERMS = ("launch", "bytes", "ctas", "steps", "unroll_steps", "rows", "bf16_steps",
+              "stream_steps")
+
+
+def card_terms(work) -> np.ndarray:
+    """The regressors of one launch (a ``registry.CardWork``): 1 (the launch
+    floor), bytes, CTAs, steps, steps times the accumulators (a trip's
+    loads), rows, steps in bf16, steps with B1's carveout at "stream"."""
+    return np.array([1.0, work.bytes, work.ctas, work.steps, work.steps * work.unroll,
+                     work.rows, work.steps if work.bf16 else 0.0,
+                     work.steps if work.stream else 0.0])
+
+
+@dataclass(frozen=True)
+class CardProfile:
+    """Seconds per unit of each of ``CARD_TERMS``, per format (its kernel),
+    fitted on the card's measured kernel times (``fit_card_profile``);
+    ``n_sms`` is the SM count the launches are planned for."""
+
+    name: str
+    n_sms: int
+    coef: tuple[tuple[str, tuple[float, ...]], ...]  # (format, per-term seconds)
+    source: str = ""  # the run the constants came from
+
+    def of(self, fmt: str) -> tuple[float, ...] | None:
+        return dict(self.coef).get(fmt)
+
+    def seconds(self, fmt: str, terms) -> float:
+        """The modelled latency of a launch of ``fmt`` with regressors
+        ``terms`` (``card_terms``)."""
+        coef = self.of(fmt)
+        if coef is None:
+            raise ValueError(f"profile {self.name} has no constants for {fmt!r}")
+        return float(np.dot(coef, terms))
+
+
+# Fitted by fit_card_profile on the dataset of chip_smoke.py's phase 17 (the
+# whole card space on its pool, the CSR space on ten presets cut to n ~
+# 14,000; CUDA events, L2 flushed), NVIDIA H100 80GB HBM3, 700.00 W.
+H100_CARD = CardProfile(
+    name="h100_card",
+    n_sms=132,
+    coef=(
+        ("csr", (6.049e-06, 5.04e-13, 8.405e-10, 1.149e-07, 8.04e-08, 4.642e-07, 1.674e-07,
+                 3.395e-08)),
+        ("ell", (6.404e-06, 6.297e-13, 0.0, 2.142e-07, 0.0, 0.0, 2.006e-08, 0.0)),
+        ("sell", (7.327e-06, 2.163e-13, 2.194e-10, 3.254e-07, 8.282e-08, 0.0, 1.746e-07, 0.0)),
+        ("bell", (2.382e-05, 0.0, 6.019e-09, 0.0, 3.232e-07, 0.0, 7.47e-08, 0.0)),
+    ),
+    source="chip_smoke.py phase 17(b), run B; NVIDIA H100 80GB HBM3, 700.00 W",
+)
+
+
+class CardCostModel:
+    """The four objectives of the card's kernels, B1-B4, as they launch.
+
+    Latency is the profile's seconds per unit times what the launch does
+    (``FormatSpec.card_work``: from the same integer plans the wrappers
+    launch with, ``csr_launch_plan``, ``ell_launch_plan``,
+    ``sell_launch_plan`` and ``block_segments``): the launch floor, the
+    bytes moved (B1 stores no padding; B2-B4 read up to their padding
+    tails), the serial trips of the busiest CTAs (how the CTAs and their
+    rows fill the card), B1's rows walked one after another, and those
+    trips in bf16 or under B1's "stream" carveout. A point is feasible
+    exactly when its ``card_launch`` is (the storage guards, in a
+    partition's blocks too) and its plan exists; a format without
+    ``card_work`` is not priced (infeasible). Energy, power and efficiency
+    are the reference model's formulas on these counts with ``hw``'s
+    energy constants, which are estimates until the board's power is
+    measured."""
+
+    def __init__(self, profile: CardProfile = H100_CARD, hw: HardwareProfile = H100_SXM):
+        self.profile = profile
+        self.hw = hw
+        # per matrix, the work of each distinct launch: many schedules give one
+        self._seen: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+    def work(self, stats: MatrixStats, fmt: str, schedule: KernelSchedule):
+        """The launch's ``CardWork``, or ``None`` where the card does not run
+        it (refused storage, no plan, no ``card_work``)."""
+        spec = get_format(fmt)
+        if spec.card_work is None or spec.card_launch is None:
+            return None
+        try:
+            at = spec.card_launch(stats, schedule, self.profile.n_sms)
+        except ValueError:  # no launch plan for this point
+            return None
+        if not at.feasible:
+            return None
+        seen = self._seen.setdefault(stats, {})
+        key = (fmt, at.geometry, at.launch)
+        if key not in seen:
+            seen[key] = spec.card_work(stats, schedule, self.profile.n_sms)
+        return seen[key]
+
+    def evaluate(
+        self, stats: MatrixStats, fmt: str, schedule: KernelSchedule
+    ) -> ObjectiveValues:
+        work = self.work(stats, fmt, schedule)
+        if work is None or self.profile.of(fmt) is None:
+            return INFEASIBLE
+        hw = self.hw
+        latency = self.profile.seconds(fmt, card_terms(work))
+        e_flop = hw.e_flop_bf16 if work.bf16 else hw.e_flop_f32
+        elem_bytes = 2.0 if work.bf16 else 4.0
+        energy = (
+            work.flops * e_flop
+            + work.bytes * hw.e_hbm_byte
+            + work.flops * elem_bytes * hw.e_vmem_byte
+            + work.gathers * 4.0 * hw.e_vmem_byte
+            + work.ctas * hw.e_grid_step
+        )
+        power = min(energy / latency, hw.p_max - hw.p_static)
+        mflops = 2.0 * stats.nnz / latency / 1e6
+        return ObjectiveValues(latency, energy, power, mflops / power)
+
+
+def fit_card_profile(dataset, *, source: str = "",
+                     exclude: tuple[str, ...] = ()) -> CardProfile:
+    """Least squares of the measured latencies of a card collection
+    (``collect_dataset(measure=True, space=CardSpace(...))``) on their
+    launches' ``card_terms``, per format, relative error weighted, the
+    coefficients held non-negative. The dataset carries each measured
+    point's regressors (``meta["card_terms"]``) and the SM count their
+    launches were planned for (``meta["n_sms"]``); ``exclude`` leaves
+    matrices out (a leave-one-out fit)."""
+    rows: dict[str, list] = {}
+    ys: dict[str, list] = {}
+    terms = dataset.meta.get("card_terms", {})
+    for matrix, by_point in terms.items():
+        if matrix in exclude:
+            continue
+        measured = {r.config: r for r in dataset.for_matrix(matrix)
+                    if r.source.startswith("measured_")}
+        for key, x in by_point:
+            r = measured.get(_config_from_key(key))
+            if r is None or not r.feasible or not math.isfinite(r.latency):
+                continue
+            rows.setdefault(r.config.fmt, []).append(x)
+            ys.setdefault(r.config.fmt, []).append(r.latency)
+    coef = []
+    for fmt in rows:
+        X = np.asarray(rows[fmt], dtype=np.float64)
+        y = np.asarray(ys[fmt], dtype=np.float64)
+        coef.append((fmt, tuple(float(c) for c in _nnls(X / y[:, None], np.ones_like(y)))))
+    return CardProfile(H100_CARD.name, dataset.meta["n_sms"], tuple(coef), source)
+
+
+def _config_from_key(key: str):
+    from repro_torch.core.dataset import config_of
+
+    return config_of(json.loads(key))
+
+
+def _nnls(A: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """min ||A c - b|| over c >= 0 (Lawson and Hanson's active set), columns
+    scaled to unit norm first; an all-zero column gets 0."""
+    norms = np.linalg.norm(A, axis=0)
+    live = norms > 0
+    As = A[:, live] / norms[live]
+    n = As.shape[1]
+    c = np.zeros(n)
+    passive = np.zeros(n, dtype=bool)
+    for _ in range(3 * n + 10):
+        w = As.T @ (b - As @ c)
+        if passive.all() or w[~passive].max(initial=0.0) <= 1e-12:
+            break
+        passive[np.argmax(np.where(passive, -np.inf, w))] = True
+        while True:
+            z = np.zeros(n)
+            z[passive] = np.linalg.lstsq(As[:, passive], b, rcond=None)[0]
+            if (z[passive] > 0).all():
+                c = z
+                break
+            neg = passive & (z <= 0)
+            alpha = np.min(c[neg] / (c[neg] - z[neg]))
+            c = c + alpha * (z - c)
+            passive &= c > 1e-15
+    out = np.zeros(A.shape[1])
+    out[live] = c / norms[live]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # measurement-calibrated cost model
 # ---------------------------------------------------------------------------
 
@@ -231,8 +424,8 @@ class FormatCalibration:
         }
 
 
-class CalibratedCostModel(CostModel):
-    """``CostModel`` with per-format affine corrections fit to telemetry.
+class CalibratedCostModel:
+    """A cost model with per-format affine corrections fit to telemetry.
 
     The analytical model's *orderings* drive the tuner, but the partition
     planner also needs absolute scale: choosing between 1 launch and k
@@ -242,6 +435,12 @@ class CalibratedCostModel(CostModel):
     accumulated by the telemetry recorder, and applied inside ``evaluate`` —
     ``partition.plan.combine`` then charges k corrected launches against one
     corrected monolithic launch with no planner changes.
+
+    ``base`` is the model whose latencies the corrections scale, and whose
+    feasibility stands: the reference-equal ``CostModel(hw)`` by default, as
+    in the reference; a session whose plans a ``CardCostModel`` scores
+    corrects that model (``AutoSpmvSession.calibrate``), so its storage
+    guards and launch counts stay in force.
 
     With no corrections (or none for the requested format) evaluation is
     byte-identical to the base model, so the class is safe as a drop-in
@@ -254,14 +453,17 @@ class CalibratedCostModel(CostModel):
         self,
         hw: HardwareProfile = H100_SXM,
         corrections: dict[str, FormatCalibration] | None = None,
+        *,
+        base=None,
     ):
-        super().__init__(hw)
+        self.hw = hw
+        self.base = CostModel(hw) if base is None else base
         self.corrections = dict(corrections or {})
 
     def evaluate(
         self, stats: MatrixStats, fmt: str, schedule: KernelSchedule
     ) -> ObjectiveValues:
-        base = super().evaluate(stats, fmt, schedule)
+        base = self.base.evaluate(stats, fmt, schedule)
         cal = self.corrections.get(fmt)
         if cal is None or cal.samples <= 0 or not base.feasible:
             return base
@@ -306,21 +508,24 @@ class CalibratedCostModel(CostModel):
         cls,
         samples: dict[str, list[tuple[float, float]]],
         hw: HardwareProfile = H100_SXM,
+        *,
+        base=None,
     ) -> "CalibratedCostModel":
-        """Fit per-format corrections from (predicted_s, measured_s) pairs."""
+        """Fit per-format corrections from (predicted_s, measured_s) pairs;
+        ``base``: the model that predicted them."""
         corrections = {}
         for fmt, pairs in samples.items():
             cal = cls._fit_one(list(pairs))
             if cal is not None:
                 corrections[fmt] = cal
-        return cls(hw, corrections)
+        return cls(hw, corrections, base=base)
 
     @classmethod
     def fit_from_telemetry(
-        cls, recorder, hw: HardwareProfile = H100_SXM
+        cls, recorder, hw: HardwareProfile = H100_SXM, *, base=None
     ) -> "CalibratedCostModel":
         """Fit from a ``TelemetryRecorder``'s accumulated calibration pairs."""
-        return cls.fit(recorder.calibration_samples(), hw)
+        return cls.fit(recorder.calibration_samples(), hw, base=base)
 
     # -------------------------------------------------------------- persist
     def save(self, path) -> None:
@@ -330,6 +535,7 @@ class CalibratedCostModel(CostModel):
         payload = {
             "version": 1,
             "hardware": self.hw.name,
+            "base": _base_record(self.base),
             "formats": {f: c.as_dict() for f, c in self.corrections.items()},
         }
         atomic_write_text(path, json.dumps(payload, indent=2, sort_keys=True))
@@ -354,7 +560,35 @@ class CalibratedCostModel(CostModel):
             )
             for fmt, d in raw.get("formats", {}).items()
         }
-        return cls(resolved, corrections)
+        return cls(resolved, corrections, base=_base_of(raw.get("base"), resolved))
+
+
+def _base_record(model) -> dict:
+    """What a calibration file says of the model its corrections scale: the
+    reference-equal ``CostModel``, or a ``CardCostModel`` with its whole
+    profile (a profile fitted at run time has no name of its own)."""
+    if isinstance(model, CardCostModel):
+        p = model.profile
+        return {"model": "CardCostModel", "profile": {
+            "name": p.name, "n_sms": p.n_sms, "source": p.source,
+            "coef": [[f, list(c)] for f, c in p.coef]}}
+    return {"model": type(model).__name__}  # load() rebuilds CostModel only
+
+
+def _base_of(record: dict | None, hw: HardwareProfile):
+    """The base model a calibration file names; a file without one (the
+    reference's, or one written before the card's model) corrects the
+    reference-equal ``CostModel``."""
+    kind = (record or {"model": "CostModel"}).get("model")
+    if kind == "CostModel":
+        return CostModel(hw)
+    if kind == "CardCostModel":
+        p = record["profile"]
+        profile = CardProfile(p["name"], int(p["n_sms"]),
+                              tuple((f, tuple(map(float, c))) for f, c in p["coef"]),
+                              p.get("source", ""))
+        return CardCostModel(profile, hw)
+    raise ValueError(f"calibration corrects an unknown model {kind!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,20 @@ def measure_overheads(
     return OverheadSample(name, feats, f_latency, c_latency)
 
 
+def overhead_samples(dataset) -> list[OverheadSample]:
+    """The §5.3 samples a measured collection over the card's space took at
+    its matrices' own sizes (``core.dataset.collect_dataset``,
+    ``meta["overhead"]``), with no further conversion: per matrix its
+    feature pass, and per format the conversion of the default schedule's
+    geometry; a format whose storage the guard refused has none."""
+    out = []
+    for name, seen in dataset.meta.get("overhead", {}).items():
+        feats = dataset.for_matrix(name)[0].features
+        c_latency = {f: t for f, t in seen.get("conversion_s", {}).items() if t is not None}
+        out.append(OverheadSample(name, feats, seen["features_s"], c_latency))
+    return out
+
+
 def _design_row(features: SparsityFeatures) -> np.ndarray:
     # overheads scale ~linearly in n and nnz; keep raw terms + log terms
     v = features.vector()

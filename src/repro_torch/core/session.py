@@ -34,7 +34,8 @@ import-cycle-free.
 Partitioned plans (``partitioned_optimize``) are cached per feature bucket
 under a ``part:max<k>`` mode and replayed onto each matrix's own row
 boundaries; with ``fused=True`` the composite runs as one launch. A
-``cost_model=`` given to the session scores those plans.
+``cost_model=`` given to the session scores those plans, else the model that
+labelled the tuner's dataset.
 With a selector, ``serve_partitioned`` gives every row block its own
 bandit cell (``block_arm_bucket``) and ``observe_partitioned`` feeds each
 (block, format) arm its own measured time. ``calibrate`` fits a
@@ -203,7 +204,8 @@ class AutoSpmvSession:
         Optional ``CostModel`` (e.g. on another ``HardwareProfile``) that
         ``partitioned_optimize`` scores plans with; ``None`` loads
         ``<cache>.calibration.json`` where one lies beside ``cache_path``,
-        else is the default ``CostModel()`` on ``H100_SXM``.
+        else leaves it to the tuner's own model (``AutoSpMV.cost_model``:
+        ``CardCostModel`` for a tuner ``build_tuner`` built on a card).
     """
 
     def __init__(
@@ -552,7 +554,7 @@ class AutoSpmvSession:
 
         Planning uses the session's ``cost_model`` when one is set (a
         ``CalibratedCostModel`` after ``calibrate``), so block-count search
-        charges the measured per-launch fixed cost. With
+        charges the measured per-launch fixed cost; else the tuner's own. With
         ``fused=True`` the composite lowers to ONE launch
         (``compile_fused_partitioned``, one memo entry keyed on the whole
         plan) instead of per-block kernels — the fast serving path;
@@ -966,18 +968,27 @@ class AutoSpmvSession:
         The recorder's (predicted_s, measured_s) pairs become per-format
         affine corrections; the fitted model replaces the session's
         ``cost_model`` so subsequent partition planning charges the measured
-        per-launch cost. The hardware is the session cost model's, or
-        ``H100_SXM`` where it has none. Cached partitioned plans were scored
+        per-launch cost. The corrections scale the model that scored the
+        session's plans, the one the predictions came from: the session's
+        ``cost_model`` (the base of a calibrated one), else the tuner's
+        (``CardCostModel`` for a tuner ``build_tuner`` built on a card), else
+        ``CostModel(H100_SXM)``; the hardware is that model's. Cached
+        partitioned plans were scored
         by the old model and are evicted (any ``part:*`` mode, every bucket)
         — the next request re-plans against measured reality. Persisted as a
         sibling of the tuning cache so a restarted session auto-loads it.
         """
         if self.telemetry is None:
             raise ValueError("calibrate() requires a telemetry recorder")
-        from repro_torch.core.objectives import H100_SXM, CalibratedCostModel
+        from repro_torch.core.objectives import H100_SXM, CalibratedCostModel, CostModel
 
-        hw = getattr(self.cost_model, "hw", None) or H100_SXM
-        model = CalibratedCostModel.fit_from_telemetry(self.telemetry, hw)
+        base = self.cost_model if self.cost_model is not None else getattr(
+            self.tuner, "cost_model", None)
+        if isinstance(base, CalibratedCostModel):
+            base = base.base
+        if base is None:
+            base = CostModel(H100_SXM)
+        model = CalibratedCostModel.fit_from_telemetry(self.telemetry, base.hw, base=base)
         model.corrections = {
             f: c for f, c in model.corrections.items() if c.samples >= min_samples
         }
@@ -1012,6 +1023,7 @@ def build_tuner(
     *,
     fit_overhead: bool = True,
     device: str | torch.device | None = None,
+    model=None,
 ) -> AutoSpMV:
     """Convenience: collect a small dataset, fit predictors + overhead model.
 
@@ -1020,8 +1032,12 @@ def build_tuner(
     ``AutoSpmvPredictor`` themselves and pass it to ``AutoSpMV`` directly.
     ``device`` (``None`` = CUDA, raising where absent) is where the tuner's
     kernels and the overhead samples' conversions put their arrays.
+    ``model`` labels the dataset and scores partitioned plans: by default
+    the card's ``CardCostModel`` on a CUDA device and the reference-equal
+    ``CostModel`` on the CPU; either may be passed on either device.
     """
     from repro_torch.core.dataset import collect_dataset
+    from repro_torch.core.objectives import CardCostModel, CostModel
     from repro_torch.core.overhead import OverheadPredictor, measure_overheads
     from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig
     from repro_torch.sparse.generate import MATRIX_NAMES, generate_by_name
@@ -1029,8 +1045,10 @@ def build_tuner(
     from repro_torch.kernels.common import resolve_device
 
     device = resolve_device(device)
+    if model is None:
+        model = CardCostModel() if device.type == "cuda" else CostModel()
     names = tuple(names) if names is not None else MATRIX_NAMES[:8]
-    ds = collect_dataset(scale=scale, names=names, n_extra=n_extra)
+    ds = collect_dataset(scale=scale, names=names, n_extra=n_extra, model=model)
     pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=device)).fit(ds)
     overhead = None
     if fit_overhead:
@@ -1040,4 +1058,4 @@ def build_tuner(
                 for n in names
             ]
         )
-    return AutoSpMV(pred, overhead, device=device, dataset=ds)
+    return AutoSpMV(pred, overhead, device=device, dataset=ds, cost_model=model)

@@ -6,6 +6,8 @@
 //   AccBF16  both operands, every product and every running sum are rounded
 //            to bfloat16 (round-to-nearest-even) and carried as float, which
 //            reproduces bf16 accumulation without bf16 registers.
+// kRounds says whether a policy rounds its sums (B3 then folds its bf16 sums
+// into a float32 carry every 128 of a row's products).
 // Launch helpers return cudaGetLastError() as an int; kernels launch on the
 // stream they are given, never synchronise and allocate nothing.
 #pragma once
@@ -21,6 +23,7 @@ constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct AccF32 {
+  static constexpr bool kRounds = false;
   __device__ __forceinline__ static float fma(float a, float b, float acc) {
     return fmaf(a, b, acc);
   }
@@ -28,6 +31,7 @@ struct AccF32 {
 };
 
 struct AccBF16 {
+  static constexpr bool kRounds = true;
   __device__ __forceinline__ static float rnd(float v) {
     return __bfloat162float(__float2bfloat16(v));
   }

@@ -8,7 +8,11 @@ and only then — it takes ``sell_spmv_plain``. The launch comes from
 ``sell_launch_plan`` (shapes and the card's SM count only): P threads per
 row stride the row's stored nonzeros, each with ``unroll`` accumulators,
 several slices share a CTA where ``P * C`` is small, and the P partials
-of a row are added in a fixed order. The reference kernel's tile pointers,
+of a row are added in a fixed order. With ``accum_dtype="bfloat16"`` each
+thread folds its bf16 sums into a float32 carry after every
+``SELL_CARRY_PRODUCTS`` of its row's products (the reference sums a tile of
+128 in bf16 and collects tiles in float32), so no bf16 running sum spans a
+long row. The reference kernel's tile pointers,
 width-in-tiles array and masked out-of-range tiles have no counterpart:
 the loop bound is a runtime value.
 
@@ -34,6 +38,9 @@ SELL_MAX_THREADS = 1024  # per CTA: csrc/spmv_sell.cu's spmv_sell_constants
 SELL_TARGET_WARPS_PER_SM = 32
 # slices share a CTA until it holds at least this many threads
 SELL_MIN_CTA_THREADS = 128
+# bf16: a row's products between two folds of a thread's sums into its
+# float32 carry (csrc/spmv_sell.cu's kCarryProducts)
+SELL_CARRY_PRODUCTS = 128
 
 
 def sell_spmv_plain(

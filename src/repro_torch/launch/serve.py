@@ -87,6 +87,7 @@ def _build_lm_engine(args, cfg, params, device):
         scale=0.0008, names=MATRIX_NAMES[:4], n_extra=0, fit_overhead=False, device=device
     )
     log.info("lm-sparse tuner ready in %.1fs", time.time() - t0)
+    log.info("tuner labelled by %s", tuner.dataset.meta["model"])
     session = AutoSpmvSession(tuner)
     engine = SparseInferenceEngine(session)
     pruned = prune_model_ffns(params, cfg, engine, density=args.lm_density)
@@ -172,6 +173,7 @@ def serve_spmv(args) -> list[SpmvRequest]:
         device=device,
     )
     log.info("tuner ready in %.1fs (device %s)", time.time() - t0, device)
+    log.info("tuner labelled by %s", tuner.dataset.meta["model"])
 
     # active-observability features imply their substrates: fleet sync needs
     # the bandit posterior, the anomaly watchdog needs calibration pairs

@@ -75,6 +75,7 @@ def run_solve(args):
         scale=args.scale, names=MATRIX_NAMES[: args.train_matrices], device=device
     )
     log.info("tuner ready in %.1fs (device %s)", time.time() - t0, device)
+    log.info("tuner labelled by %s", tuner.dataset.meta["model"])
     session = AutoSpmvSession(tuner, cache_path=args.cache)
 
     policy = None

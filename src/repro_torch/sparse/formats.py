@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Union
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -272,25 +272,56 @@ def ell_from_dense(
     )
 
 
+class BellOccupancy(NamedTuple):
+    """The nonzeros of a matrix after its cast to BELL's dtype (rows, cols,
+    values) and its (block rows, block columns) grid of the ``br x bc``
+    blocks that hold one (``occupied``)."""
+
+    rows: np.ndarray
+    cols: np.ndarray
+    values: np.ndarray
+    occupied: np.ndarray
+
+    @property
+    def max_blocks(self) -> int:
+        """The blocks ``bell_from_dense`` stores per block row: the most
+        occupied in any block row, at least 1."""
+        return max(int(self.occupied.sum(axis=1).max(initial=0)), 1)
+
+
+def bell_occupancy(dense: np.ndarray, br: int, bc: int = LANE, dtype=np.float32
+                   ) -> BellOccupancy:
+    """One scan of ``dense`` after its cast to ``dtype`` (shared inside
+    ``shared_nonzeros``): what BELL's storage guard charges and
+    ``bell_from_dense`` builds from. The nonzeros are chosen after the cast,
+    as the reference's padded float32 copy chooses them."""
+    dense = np.asarray(dense).astype(dtype, copy=False)
+    rows, cols, _, values = _scan(dense)
+    nbr, nbc = _ceil_to(dense.shape[0], br) // br, _ceil_to(dense.shape[1], bc) // bc
+    occupied = np.zeros((nbr, nbc), dtype=bool)
+    occupied[rows // br, cols // bc] = True
+    return BellOccupancy(rows, cols, values, occupied)
+
+
 def bell_from_dense(
-    dense: np.ndarray, br: int = SUBLANE, bc: int = LANE, dtype=np.float32, *, device=None
+    dense: np.ndarray, br: int = SUBLANE, bc: int = LANE, dtype=np.float32, *, device=None,
+    occupancy: BellOccupancy | None = None,
 ) -> BELL:
+    """BELL storage: each block row's occupied blocks in ascending block
+    column, then zero blocks at block column 0. ``occupancy``: this
+    matrix's ``bell_occupancy(dense, br, bc, dtype)``, where the caller has
+    it (the storage guard's), so the matrix is scanned once."""
     device = resolve_device(device)
-    dense = np.asarray(dense)
-    n_rows, n_cols = dense.shape
-    pr, pc = _ceil_to(n_rows, br), _ceil_to(n_cols, bc)
-    padded = np.zeros((pr, pc), dtype=dtype)
-    padded[:n_rows, :n_cols] = dense
-    nbr, nbc = pr // br, pc // bc
-    blocks = padded.reshape(nbr, br, nbc, bc).transpose(0, 2, 1, 3)  # (nbr, nbc, br, bc)
-    occupied = (blocks != 0).any(axis=(2, 3))  # (nbr, nbc)
-    max_blocks = max(int(occupied.sum(axis=1).max(initial=0)), 1)
+    n_rows, n_cols = np.shape(dense)
+    occ = bell_occupancy(dense, br, bc, dtype) if occupancy is None else occupancy
+    rows, cols, values, occupied = occ
+    nbr, max_blocks = occupied.shape[0], occ.max_blocks
+    slot = np.cumsum(occupied, axis=1) - 1  # each occupied block's place in its row
     data = np.zeros((nbr, max_blocks, br, bc), dtype=dtype)
     block_cols = np.zeros((nbr, max_blocks), dtype=np.int32)
-    for i in range(nbr):
-        js = np.nonzero(occupied[i])[0]
-        data[i, : js.size] = blocks[i, js]
-        block_cols[i, : js.size] = js
+    r, c = np.nonzero(occupied)
+    block_cols[r, slot[r, c]] = c
+    data[rows // br, slot[rows // br, cols // bc], rows % br, cols % bc] = values
     return BELL(
         data=to_tensor(data, device),
         block_cols=to_tensor(block_cols, device),

@@ -48,6 +48,10 @@ Contract notes for plugin authors (enforced by the shared suite in
   reads), and whether ``prepare`` admits it. The card's tuning space
   (``repro_torch.core.tuning_space.CardSpace``) keeps one point per
   distinct (geometry, launch); a format without it keeps every schedule.
+* ``card_work`` (optional) counts, from the same integer plans, what that
+  launch does on the card (``CardWork``): bytes moved, products, x
+  gathers, CTAs, and the serial steps of its busiest CTAs; the card's cost
+  model (``core.objectives.CardCostModel``) prices them.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import (
+    BLOCK_CTAS_PER_SM,
     FAST_MEMORY_BYTES,
     LANE,
     InfeasibleConfig,
@@ -73,6 +78,7 @@ from repro_torch.kernels.common import (
 
 __all__ = [
     "CardLaunch",
+    "CardWork",
     "FormatSpec",
     "InfeasibleConfig",
     "KernelFootprint",
@@ -174,6 +180,47 @@ def _plan_key(plan: dict) -> tuple:
     return tuple(sorted(plan.items()))
 
 
+class CardWork(NamedTuple):
+    """What one launch does on the card, from integers (``card_work``).
+
+    ``bytes``: device-memory bytes it moves (what it reads of the storage,
+    up to the padding tail where the kernel stops, the index arrays it
+    walks, x once and y once); ``flops``: twice the products it computes
+    (BELL computes its blocks whole); ``gathers``: x elements it gathers;
+    ``ctas``: CTAs launched. ``steps``: the serial trips of the launch's
+    busiest CTAs, a makespan: the larger of the CTAs' trips spread over
+    every CTA slot of the card and the longest CTA's (a trip is one round
+    of a lane's loads and gathers: B1 a warp's ``32 x unroll`` nonzeros,
+    B2 a row group's ``G x unroll`` slots, B3 ``P x unroll`` elements of a
+    row, B4 one ``br x 128`` block per ``br / 8`` of its rows); ``rows``:
+    the same makespan of the rows the CTAs' warps walk one after another
+    (B1 only: each costs an ``indptr`` read, a shuffle tree and a store).
+    ``unroll``: a lane's accumulators (the loads a trip issues; B4: 1);
+    ``bf16`` and ``stream`` flag the accumulator and B1's carveout."""
+
+    bytes: float
+    flops: float
+    gathers: float
+    ctas: int
+    steps: float
+    rows: float = 0.0
+    unroll: int = 1
+    bf16: bool = False
+    stream: bool = False
+
+
+# CTAs an SM holds of a 256-thread CTA (B1, B2): 2,048 threads
+_CTAS_PER_SM_256 = 8
+
+
+def _makespan(per_cta: np.ndarray, slots: int) -> float:
+    """Serial work of a launch whose CTAs run ``per_cta`` each on ``slots``
+    CTA slots: the larger of the spread sum and the longest CTA."""
+    if per_cta.size == 0:
+        return 0.0
+    return float(max(per_cta.sum() / slots, per_cta.max()))
+
+
 # ---------------------------------------------------------------------------
 # The FormatSpec contract + registry
 # ---------------------------------------------------------------------------
@@ -201,6 +248,9 @@ class FormatSpec:
     # (MatrixStats, KernelSchedule, n_sms) -> CardLaunch; None: every
     # schedule is its own point of the card's space
     card_launch: Callable | None = None
+    # (MatrixStats, KernelSchedule, n_sms) -> CardWork; None: the card's
+    # cost model (core.objectives.CardCostModel) cannot price the format
+    card_work: Callable | None = None
 
 
 _REGISTRY: dict[str, FormatSpec] = {}
@@ -312,6 +362,7 @@ from repro_torch.sparse.formats import (  # noqa: E402
     SELL,
     to_tensor,
     bell_from_dense,
+    bell_occupancy,
     bell_to_dense,
     csr_from_dense,
     csr_to_dense,
@@ -377,6 +428,34 @@ def _csr_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -
                       (_plan_key(plan), schedule.accum_dtype, schedule.x_residency))
 
 
+def _csr_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
+    # B1: row CTAs of rows_per_block rows, warp k of a CTA takes rows k, k +
+    # 8, ...; a row of more than hub_row nonzeros goes to the chunk CTAs,
+    # each of which adds the hub nonzeros of its chunk with all its threads
+    n, nnz = stats.n_rows, stats.nnz
+    plan = csr_launch_plan(n, nnz, schedule.rows_per_block, schedule.unroll, n_sms,
+                           n_cols=stats.n_cols)
+    lens = stats.row_counts
+    hub = lens > plan["hub_row"]
+    trips = np.where(hub, 0, -(-lens // (32 * schedule.unroll)))
+    rpb, warps = plan["rows_per_cta"], plan["threads"] // 32
+    padded = np.zeros(plan["row_ctas"] * rpb, dtype=np.int64)
+    padded[:n] = trips
+    per_warp = padded.reshape(plan["row_ctas"], rpb // warps, warps).sum(axis=1)
+    per_cta = per_warp.max(axis=1) if per_warp.size else per_warp.reshape(-1)
+    if plan["hub_ctas"]:
+        hub_trips = -(-int(lens[hub].sum()) // (plan["hub_ctas"] * plan["threads"]))
+        per_cta = np.concatenate([np.full(plan["hub_ctas"], hub_trips), per_cta])
+    slots = n_sms * _CTAS_PER_SM_256
+    rows = np.full(plan["row_ctas"], rpb // warps)
+    return CardWork(
+        bytes=float(nnz * (_VAL_B + _IDX_B) + (n + 1) * _IDX_B + n * _VAL_B
+                    + stats.n_cols * _VAL_B),
+        flops=2.0 * nnz, gathers=float(nnz), ctas=plan["ctas"],
+        steps=_makespan(per_cta, slots), rows=_makespan(rows, slots), unroll=schedule.unroll,
+        bf16=schedule.accum_dtype == "bfloat16", stream=schedule.x_residency == "stream")
+
+
 # --- ELL -------------------------------------------------------------------
 
 
@@ -435,18 +514,51 @@ def _ell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -
                                schedule.accum_dtype), R * W * 8 <= MAX_STORAGE_BYTES)
 
 
+def _ell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
+    # B2: a group of G lanes per row, 32 / G rows a warp, 8 warps a CTA; a
+    # row's group reads steps of G x unroll slots and stops after the step
+    # that holds its first padding slot; a warp runs its slowest row's steps
+    R = ceil_to(stats.n_rows, schedule.rows_per_block)
+    W = ceil_to(max(stats.max_nnz, 1), schedule.nnz_tile)
+    plan = ell_launch_plan(R, W, n_sms)
+    step = plan["lanes"] * schedule.unroll
+    lens = np.zeros(plan["ctas"] * plan["rows_per_cta"], dtype=np.int64)
+    lens[: stats.n_rows] = stats.row_counts
+    row_steps = np.minimum(-(-W // step), lens // step + 1)
+    row_steps[R:] = 0
+    per_cta = row_steps.reshape(plan["ctas"], -1).max(axis=1)
+    slots = int(np.minimum(W, row_steps * step).sum())
+    return CardWork(
+        bytes=float(slots * (_VAL_B + _IDX_B) + stats.n_cols * _VAL_B + R * _VAL_B),
+        flops=2.0 * stats.nnz, gathers=float(stats.nnz), ctas=plan["ctas"],
+        steps=_makespan(per_cta, n_sms * _CTAS_PER_SM_256), unroll=schedule.unroll,
+        bf16=schedule.accum_dtype == "bfloat16")
+
+
 # --- BELL ------------------------------------------------------------------
 
 
+def _bell_bytes(nbr: int, max_blocks: int, br: int) -> int:
+    # what bell_from_dense stores: nbr x max_blocks blocks of br x 128 slots,
+    # 8 bytes a slot as the other formats' guards count
+    return nbr * max(max_blocks, 1) * br * LANE * 8
+
+
 def _bell_prepare(dense: np.ndarray, schedule: KernelSchedule, *, device=None) -> BELL:
+    # The guard charges the storage bell_from_dense builds. The reference
+    # charges min(nnz, nbr x n_col_blocks) blocks as if every block row held
+    # that many, which refuses every BELL above n ~ 8,000 (a stated
+    # difference: its bound stays 512 MiB, what it bounds is the true size).
+    # One scan serves the guard and the converter. _bell_card_launch counts
+    # blocks from MatrixStats's mask of the values before the cast, so it
+    # charges at least this (more only where a nonzero rounds to 0 in
+    # float32): what it calls feasible, this admits.
     dense = np.asarray(dense)
-    n_rows, n_cols = dense.shape
     br = min(schedule.rows_per_block, 256)
-    nbr = ceil_to(n_rows, br) // br
-    # upper-bound occupancy estimate before materializing
-    occ_bound = min((dense != 0).sum(), nbr * (ceil_to(n_cols, LANE) // LANE))
-    check_storage_bytes(int(occ_bound) * br * LANE * 8 // max(nbr, 1) * nbr, "BELL")
-    return bell_from_dense(dense, br=br, bc=LANE, device=device)
+    nbr = ceil_to(dense.shape[0], br) // br
+    occupancy = bell_occupancy(dense, br, LANE)
+    check_storage_bytes(_bell_bytes(nbr, occupancy.max_blocks, br), "BELL")
+    return bell_from_dense(dense, br=br, bc=LANE, device=device, occupancy=occupancy)
 
 
 def _bell_spmv(mat: BELL, x, schedule: KernelSchedule):
@@ -487,11 +599,25 @@ def _bell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) 
     # takes its segments from the shapes and reads accum_dtype only
     br = min(schedule.rows_per_block, 256)
     nbr = ceil_to(stats.n_rows, br) // br
-    occ_bound = min(stats.nnz, nbr * (ceil_to(stats.n_cols, LANE) // LANE))
-    feasible = int(occ_bound) * br * LANE * 8 // max(nbr, 1) * nbr <= MAX_STORAGE_BYTES
-    mb = max(stats.block_occupancy(br, LANE)[1], 1) if feasible else 0
+    mb = max(stats.block_occupancy(br, LANE)[1], 1)
     return CardLaunch((br, nbr, mb), (block_segments(nbr, mb, n_sms), schedule.accum_dtype),
-                      feasible)
+                      _bell_bytes(nbr, mb, br) <= MAX_STORAGE_BYTES)
+
+
+def _bell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
+    # B4: S segments of each block row's live blocks, a CTA each, two CTAs
+    # an SM; a block moves br x 128 values and its x panel
+    br = min(schedule.rows_per_block, 256)
+    nbr = ceil_to(stats.n_rows, br) // br
+    blocks, mb = stats.block_occupancy(br, LANE)
+    S = block_segments(nbr, max(mb, 1), n_sms)
+    longest = -(-max(mb, 1) // S)  # blocks of the busiest segment
+    steps = max(blocks / (n_sms * BLOCK_CTAS_PER_SM), longest) * br / 8
+    return CardWork(
+        bytes=float(blocks * (br * LANE * _VAL_B + _IDX_B) + stats.n_cols * _VAL_B
+                    + nbr * br * _VAL_B),
+        flops=2.0 * blocks * br * LANE, gathers=float(blocks * LANE), ctas=nbr * S,
+        steps=steps, bf16=schedule.accum_dtype == "bfloat16")
 
 
 # --- SELL ------------------------------------------------------------------
@@ -571,6 +697,42 @@ def _sell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) 
                       (_plan_key(plan), schedule.unroll, schedule.accum_dtype))
 
 
+def _sell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
+    # B3: thread p * C + r of a slice takes row r's elements p, p + P, ...
+    # in steps of P x unroll; a warp stops after the first step at which
+    # every thread's last element is padding, or at its slices' widest
+    C, U = schedule.rows_per_block, schedule.unroll
+    q = schedule.nnz_tile
+    total, _ = stats.sell_storage(C, q)
+    n_slices = -(-stats.n_rows // C)
+    plan = sell_launch_plan(n_slices, C, total / max(n_slices * C, 1), n_sms)
+    P, spc, threads = plan["row_threads"], plan["slices_per_cta"], plan["threads"]
+    lens = np.zeros(n_slices * C, dtype=np.int64)
+    lens[: stats.n_rows] = stats.row_counts
+    widths = -(-np.maximum(lens.reshape(n_slices, C).max(axis=1), 1) // q) * q
+    t = np.arange(plan["ctas"] * threads)
+    local = t % threads
+    sl = (t // threads) * spc + local // (P * C)
+    ok = (local < spc * P * C) & (sl < n_slices)
+    sl = np.where(ok, sl, 0)
+    p, r = (local % (P * C)) // C, local % C
+    width = np.where(ok, widths[sl], 0)
+    live = np.where(ok, lens[sl * C + r], 0)
+    step = P * U
+    own = np.maximum((live - (U - 1) * P - p + step - 1) // step, 0) + 1
+    warp_steps = np.minimum(own.reshape(-1, 32).max(axis=1),
+                            -(-width.reshape(-1, 32).max(axis=1) // step))
+    reach = np.minimum(width, np.repeat(warp_steps, 32) * step)
+    read = int(np.maximum(-(-(reach - p) // P), 0)[ok].sum())
+    per_cta = warp_steps.reshape(plan["ctas"], -1).max(axis=1)
+    return CardWork(
+        bytes=float(read * (_VAL_B + _IDX_B) + 2 * n_slices * _IDX_B
+                    + stats.n_cols * _VAL_B + n_slices * C * _VAL_B),
+        flops=2.0 * stats.nnz, gathers=float(stats.nnz), ctas=plan["ctas"],
+        steps=_makespan(per_cta, n_sms * max(1, min(32, 2048 // threads))),
+        unroll=U, bf16=schedule.accum_dtype == "bfloat16")
+
+
 register_format(FormatSpec(
     name="csr",
     container=CSR,
@@ -581,6 +743,7 @@ register_format(FormatSpec(
     reference=_ref_csr,
     footprint=_csr_footprint,
     card_launch=_csr_card_launch,
+    card_work=_csr_card_work,
     priority=0,
     description="Compressed Sparse Row (warp per row; hub rows split over nonzero chunks)",
 ))
@@ -594,6 +757,7 @@ register_format(FormatSpec(
     reference=_ref_ell,
     footprint=_ell_footprint,
     card_launch=_ell_card_launch,
+    card_work=_ell_card_work,
     priority=10,
     description="ELLPACK dense value/column planes",
 ))
@@ -607,6 +771,7 @@ register_format(FormatSpec(
     reference=_ref_bell,
     footprint=_bell_footprint,
     card_launch=_bell_card_launch,
+    card_work=_bell_card_work,
     priority=20,
     description="Blocked ELL over (br x 128) dense blocks",
 ))
@@ -620,6 +785,7 @@ register_format(FormatSpec(
     reference=_ref_sell,
     footprint=_sell_footprint,
     card_launch=_sell_card_launch,
+    card_work=_sell_card_work,
     priority=30,
     description="Sliced ELL (SELL-C-q) ragged storage",
 ))

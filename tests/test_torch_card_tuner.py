@@ -200,13 +200,19 @@ def test_shared_nonzeros_scans_once_and_leaves_the_array_as_it_was(monkeypatch):
 # --------------------------- (iii) the measured dataset, a scripted timer
 def _scripted(times: dict, spread: float = 0.02):
     """A timer that calls the point once and returns its scripted median
-    (default 1.0 ms) with quartiles ``spread`` apart."""
+    (default 1.0 ms) with quartiles ``spread`` apart; a call it has timed
+    before (the re-timing in turns) comes ``spread / 2`` above and below in
+    turn, so the turns are ``spread`` apart too."""
     seen = []
+    turns = {}  # each timed call -> its timings so far
 
     def timer(fn, cfg):
         fn()
         seen.append(cfg)
         t = times.get(cfg, 1.0)
+        n = turns[fn] = turns.get(fn, 0) + 1
+        if n > 1:
+            t *= 1 + (spread / 2 if n % 2 == 0 else -spread / 2)
         return {"median_ms": t, "q1_ms": t * (1 - spread / 2), "q3_ms": t * (1 + spread / 2)}
     timer.seen = seen
     return timer
@@ -245,7 +251,9 @@ def test_collect_times_every_card_point_and_converts_once_per_geometry(monkeypat
         assert ds.meta["conversions"][name] == len(geometries)
     assert len(converted) == sum(ds.meta["conversions"].values())
     assert len(set(converted)) == len(converted)  # one conversion per geometry
-    assert len(timer.seen) == len(seen) == sum(ds.meta["calls"].values())
+    # every point once, then the re-timing's calls (its candidates in turns)
+    retimed = sum(ds.meta["retime"][m]["calls"] for m in mats)
+    assert len(timer.seen) == len(seen) + retimed == sum(ds.meta["calls"].values())
     assert ds.meta["calls"] == {f: sum(c.fmt == f for c in timer.seen) for f in FORMATS}
     assert ds.meta["spread"] == {name: pytest.approx(0.02) for name in mats}
     assert set(ds.meta["seconds"]) == {"generation", "features", "model", "conversion", "timing"}
@@ -262,7 +270,7 @@ def test_refused_geometries_are_infeasible_records_without_a_conversion(monkeypa
     refused = [r for r in measured if not r.feasible]
     assert refused and all(r.latency == math.inf for r in refused)
     assert len(converted) == ds.meta["conversions"]["m0"] and len(timer.seen) == len(
-        measured) - len(refused)
+        measured) - len(refused) + ds.meta["retime"]["m0"]["calls"]
 
 
 def test_a_point_its_check_refuses_is_infeasible_and_never_a_label(monkeypatch):
@@ -298,7 +306,12 @@ def test_ties_within_the_spread_go_to_the_default_then_fewer_rows_and_accumulato
     ds, *_ = _card_dataset(monkeypatch, {default: 2.0, a: 0.50, b: 0.505, c: 0.508}, ("csr",),
                            n=1)
     assert ds.best_record("m0", "latency").config == c
-    # the spread travels with the dataset
+    # the spreads travel with the dataset: the in-turn one decides, and
+    # without a re-timing (a dataset collected before it) the first pass's
+    ds.meta["retime"]["m0"]["spread"] = 0.0
+    assert ds.best_record("m0", "latency").config == a
+    del ds.meta["retime"]["m0"]
+    assert ds.best_record("m0", "latency").config == c
     ds.meta["spread"]["m0"] = 0.0
     assert ds.best_record("m0", "latency").config == a
 

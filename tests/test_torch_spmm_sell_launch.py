@@ -31,6 +31,7 @@ from repro_torch.kernels.ell import (
 )
 from repro_torch.kernels.ops import prepare
 from repro_torch.kernels.sell import (
+    SELL_CARRY_PRODUCTS,
     SELL_MAX_THREADS,
     SELL_ROW_THREADS,
     sell_grid,
@@ -301,11 +302,14 @@ def b8_emulate(data, cols, X, plan, bf16):
     return total, reads
 
 
-def b3_emulate(mat, x, plan, unroll, bf16):
+def b3_emulate(mat, x, plan, unroll, bf16, carry=SELL_CARRY_PRODUCTS):
     """``csrc/spmv_sell.cu`` in torch: thread (p, r) of slice s adds
     elements ``k = j*P*U + u*P + p`` into accumulator u (padding skipped),
     folds them in u order, and p = 0 adds the P partials in p order; the
-    warps' stop rule counts the elements read. Returns (y, elements read)."""
+    warps' stop rule counts the elements read. In bf16 a thread folds its
+    accumulators into a float32 carry after each step that reaches a
+    multiple of ``carry`` of the row's products (``None``: never, the
+    kernel before the rule). Returns (y, elements read)."""
     C, P, spc, threads = mat.C, plan["row_threads"], plan["slices_per_cta"], plan["threads"]
     n_slices = mat.slice_width.shape[0]
     widths, ptr = mat.slice_width.tolist(), mat.slice_ptr.tolist()
@@ -324,6 +328,7 @@ def b3_emulate(mat, x, plan, unroll, bf16):
             warp = lanes[w0:w0 + 32]
             wmax = max(lane[-1] for lane in warp)
             accs = [[torch.zeros(()) for _ in range(unroll)] for _ in warp]
+            carries = [torch.zeros(()) for _ in warp]
             for k0 in range(0, wmax, step):
                 last_live = False
                 for i, (_, s, p, r, w) in enumerate(warp):
@@ -340,11 +345,20 @@ def b3_emulate(mat, x, plan, unroll, bf16):
                             last_live = True
                 if k0 + step >= wmax or not last_live:
                     break
+                if bf16 and carry is not None and (k0 + step) % carry < step:
+                    for i, acc in enumerate(accs):
+                        v = acc[0]
+                        for u in range(1, unroll):
+                            v = _add(v, acc[u], True)
+                        carries[i] = carries[i] + v
+                        accs[i] = [torch.zeros(()) for _ in range(unroll)]
             for i, (ok, s, p, r, _) in enumerate(warp):
                 if ok:
                     v = accs[i][0]
                     for u in range(1, unroll):
                         v = _add(v, accs[i][u], bf16)
+                    if bf16 and carry is not None:
+                        v = _add(carries[i], v, True)
                     partial[(s, r, p)] = v
         for (s, r, p), v in partial.items():
             if p == 0:
@@ -420,6 +434,33 @@ def test_b3_order_gives_the_plain_and_the_reference_product(kw, pattern):
         assert_scaled_close(y.numpy(), plain.numpy(), tol)
         assert_scaled_close(y.numpy(), ref, tol)
         assert_scaled_close(y.numpy(), dense.astype(np.float64) @ x.astype(np.float64), tol)
+
+
+def test_b3_bf16_sums_fold_into_a_float32_carry_on_long_rows():
+    """Rows of 640 positive products at one thread a row (C = 512 gives P <=
+    2): one bf16 running sum stalls once its ulp passes the products (at 512
+    a product below 2 rounds away), and leaves the 3e-2 bound; the kernel's
+    sums of at most 128 products, collected in float32, stay within it, as
+    the plain version's float32 sum rounded once does."""
+    rng = np.random.default_rng(26)
+    n, width = 8, 640
+    dense = np.zeros((n, 1024), np.float32)
+    for r in range(n):
+        cols = rng.choice(1024, size=width, replace=False)
+        dense[r, cols] = rng.uniform(0.5, 1.5, size=width)
+    x = torch.from_numpy(rng.uniform(0.9, 1.1, size=1024).astype(np.float32))
+    sched = KernelSchedule(rows_per_block=8, nnz_tile=128, accum_dtype="bfloat16")
+    mat = sell_from_dense(dense, C=8, q=128, device="cpu")
+    plain = sell_spmv_plain(mat.data, mat.cols, mat.slice_ptr, mat.slice_width, x, 8, sched)
+    exact = dense.astype(np.float64) @ x.double().numpy()
+    plan = sell_grid(mat.slice_width.shape[0], 8, 1)
+    y, _ = b3_emulate(mat, x, plan, 1, True)
+    whole_row, _ = b3_emulate(mat, x, plan, 1, True, carry=None)
+    tol = tol_for("bfloat16")
+    assert_scaled_close(y.reshape(-1).numpy(), plain.reshape(-1).numpy(), tol)
+    assert_scaled_close(y.reshape(-1).numpy(), exact, tol)
+    err = np.abs(whole_row.reshape(-1).numpy() - exact).max() / np.abs(exact).max()
+    assert err > tol
 
 
 def test_b3_stop_reads_less_than_the_padded_slices():

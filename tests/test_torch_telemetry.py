@@ -248,6 +248,9 @@ def test_calibrate_equals_reference_and_evicts_partitioned_plans(tmp_path, min_s
     saved = json.loads((tmp_path / "port.calibration.json").read_text())
     ref_saved = json.loads((tmp_path / "ref.calibration.json").read_text())
     assert saved["hardware"] == "h100_sxm" and ref_saved["hardware"] == "tpu_v5e"
+    # the port's file also names the model its corrections scale (the
+    # reference-equal one here: neither session nor tuner has another)
+    assert saved.pop("base") == {"model": "CostModel"}
     assert saved.keys() == ref_saved.keys() and saved["formats"].keys() == ref_saved["formats"].keys()
 
 
