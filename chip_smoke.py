@@ -24,7 +24,9 @@ no network. Phases, each printing one JSON object on a line of its own:
                 per run of rows), timed below and used nowhere in the port;
                 and the constants the host plans share with the kernels
                 (``plan_constants``).
-3. ``check``    every hand-written kernel against its plain PyTorch version
+3. ``check``    (after ``build_tuner()`` and phase 17's yardstick tuner, their
+                seconds as ``tuner_seconds`` and ``yardstick_tuner_seconds``)
+                every hand-written kernel against its plain PyTorch version
                 and a float64 host product on the card, over six schedules,
                 at the shapes the served path gives it; a disagreement beyond
                 the stated tolerance raises. Also times kernel, plain version
@@ -235,8 +237,9 @@ no network. Phases, each printing one JSON object on a line of its own:
                 5 % and planned; the engine's decode step against the dense
                 one on the same pruned weights (<= 1e-4 and the same argmax
                 in float32; in bf16 each FFN product <= 3e-2, and the
-                logits <= 3e-2 where a 1e-5 nudge of the FFN outputs moves
-                them less than that) with the device's busy share of one
+                logits <= 3e-2 where nudges of the FFN outputs as large as
+                the engine's own distance from the dense products move them
+                less than that) with the device's busy share of one
                 step; B1 at ``w_up`` (7,680 x 2,560) and ``w_down``
                 (2,560 x 7,680) against its plain version and float64,
                 twice (bit for bit), timed beside its bound and the
@@ -348,30 +351,50 @@ no network. Phases, each printing one JSON object on a line of its own:
                 predictor's pick fitted leaving the matrix out, the
                 reference-equal cost-model tuner's pick, the card cost
                 model's pick with its constants fitted leaving the matrix
-                out, and the pick of ``build_tuner()`` on the card; per-knob
-                accuracy and the ratios. (d) A tuner fitted on the dataset
-                (``AutoSpmvPredictor.fit``, the overhead predictor fitted on
-                the served-size samples, the card model fitted on the
-                dataset -> ``AutoSpMV`` -> ``AutoSpmvSession``) serves
+                out, and the picks of ``build_tuner()`` on the card (which
+                learns its eight training matrices at the served size too)
+                and of the yardstick built in phase 1 as ``build_tuner()``
+                stood before (tiny matrices only, the reference's §5.3
+                ridge); per-knob accuracy and the ratios, those of the two
+                built tuners over all 16 matrices, over ``build_tuner()``'s
+                eight (in sample) and over the other eight (held out). (d)
+                A tuner fitted on the dataset (``AutoSpmvPredictor.fit``,
+                ``CardOverheadPredictor`` fitted on ``build_tuner()``'s
+                samples at its scale and the served-size samples, the card
+                model fitted on the dataset -> ``AutoSpMV`` ->
+                ``AutoSpmvSession``) serves
                 ``human_gene2`` and ``webgraph`` in compile-time mode: B1
                 launches equal the requests, y against float64; B1 at its
                 schedule against phase 1's, in turns. (e) Run-time mode over
                 the pool with it: formats against the reference-equal
                 tuner's, each §5.3 decision with its gain and overhead in
-                seconds, and every pool conversion's predicted seconds
-                against the measured. (f) B3 at fp32 and bf16 in turns with
+                seconds, and every pool conversion's (and feature pass's)
+                predicted seconds against the measured, by
+                ``CardOverheadPredictor`` and by the reference's
+                ``OverheadPredictor``, each in sample and with the matrix
+                left out. (f) B3 at fp32 and bf16 in turns with
                 its parent (``csrc/yardsticks/spmv_sell_rowsum.cu``) at the
                 default on ``rim`` and at C 512, unroll 1 on
                 ``human_gene2`` and ``amazon0601``: y against the plain
                 version (bf16 within 3e-2), the fp32 bits the parent's.
+18. ``examples`` the port's examples (``examples/torch_*.py``) through
+                their ``main(argv)`` on the card, at their defaults
+                (``torch_serve_lm`` with ``--sparse``, 2 requests, 1 slot,
+                2 new tokens; ``torch_train_lm`` 20 steps, its checkpoints
+                in a temporary directory): per example its seconds, its
+                launches per kernel and every correctness figure it prints
+                against its tolerance (a kernel's y 1e-4 / 3e-2 scaled,
+                the sparse-served decode logits 1e-4 / 3e-2 of the largest
+                logit); the SpMV and LM-serving examples must launch at
+                least one of B1-B8, training none.
 
 Byte bounds count what the product needs: for padded formats (ELL, SELL,
 ELL SpMM) each nonzero's value and column plus one padding slot per padded
 row to find its end, for BELL the nonzero blocks; the bound over every
 stored slot stands beside it as ``padded_bound_ms``.
 
-Launch counters are set to 0 just before phases 4-17 (each path of phases
-11-17 on its own; phase 17's dataset timing is checked against its calls
+Launch counters are set to 0 just before phases 4-18 (each path of phases
+11-18 on its own; phase 17's dataset timing is checked against its calls
 and, as measurement, not added to the kernels line) and read just after
 each:
 a kernel of the path that was launched no time fails the run (phase 15's
@@ -394,8 +417,11 @@ in float32).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import importlib.util
+import io
 import json
 import logging
 import os
@@ -445,9 +471,19 @@ from repro_torch.core.objectives import (  # noqa: E402
     fit_card_profile,
     measure_formats,
 )
-from repro_torch.core.overhead import OverheadPredictor, overhead_samples  # noqa: E402
+from repro_torch.core.overhead import (  # noqa: E402
+    CardOverheadPredictor,
+    OverheadPredictor,
+    measure_overheads,
+    overhead_samples,
+)
 from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig, _config_row  # noqa: E402
-from repro_torch.core.session import AutoSpmvSession, build_tuner  # noqa: E402
+from repro_torch.core.session import (  # noqa: E402
+    SERVED_ROWS,
+    AutoSpmvSession,
+    build_tuner,
+    served_matrix,
+)
 from repro_torch.core.tuning_space import (  # noqa: E402
     ALL_KNOBS,
     CARD_KNOBS,
@@ -638,7 +674,6 @@ DEVICE = torch.device("cuda", 0)
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
-N_TARGET = 14_000  # rows of the scaled pool matrices
 # BELL's checks and B4's numbers in the kernel table run at n = 8,000, the
 # size at which the reference's storage guard (its occupancy bound) admits
 # BELL at the default block height; the port's guard charges the true
@@ -779,6 +814,7 @@ MOE_B1_CHECK = ("head0.mlp.w_up", "head0.mlp.w_down", "g0x0.moe.w_up.0", "g0x0.m
 RG_ARCH, RG_LAYERS, RG_DENSITY = "recurrentgemma-2b", 8, 0.05
 RG_SLOTS, RG_REQUESTS, RG_NEW_TOKENS, RG_MAX_LEN = (2, 4), 16, 32, 64
 RG_CHECK_SLOTS = 4
+RG_PROBES = 4  # draws of the sensitivity probe that decides whether bf16 logits are held
 RG_B1_CHECK = ("g0x0.mlp.w_up", "g0x0.mlp.w_down")
 XL_ARCH, XL_LAYERS = "xlstm-1.3b", 16
 XL_SLOTS, XL_REQUESTS, XL_NEW_TOKENS, XL_MAX_LEN = 2, 8, 16, 64
@@ -806,11 +842,14 @@ RG_TRAIN_STEPS, RG_TRAIN_BATCH = 3, (4, 256)
 H100_BF16_FLOPS = 989e12  # dense bf16 peak, H100 SXM data sheet (at 700 W)
 # phase 17 (tuner): the card's dataset. The whole card space (every format)
 # on the pool, the card's CSR space on the presets below (the paper's
-# first presets beside the pool, cut to N_TARGET rows); CUDA-event
+# first presets beside the pool, cut to SERVED_ROWS rows); CUDA-event
 # repetitions per point; requests per matrix served with the card-fitted
 # tuner; regressor records of each leave-one-out predictor
 TUNER_CSR_PRESETS = tuple(n for n in MATRIX_NAMES if n not in POOL)[:10]
 TUNER_REPS, TUNER_SERVE, TUNER_LOO_SAMPLES = 6, 4, 150
+# build_tuner()'s arguments, which the yardstick tuner repeats; its names are
+# in sample at the served size, phase 17's other matrices held out
+TUNER_SCALE, TUNER_NAMES, TUNER_EXTRA = 0.0015, MATRIX_NAMES[:8], 4
 TUNER_CARVE_ROUNDS = 2  # in-turns rounds of B1's carveout arms
 # 17(f): B3 against its parent at the default on rim, and where one thread
 # of a row sums ~300 products (C = 512, unroll 1: P <= 2); rounds in turns
@@ -818,6 +857,15 @@ TUNER_B3_CASES = (("rim", DEFAULT_SCHEDULE),
                   ("human_gene2", KernelSchedule(rows_per_block=512, unroll=1)),
                   ("amazon0601", KernelSchedule(rows_per_block=512, unroll=1)))
 TUNER_B3_ROUNDS = 2
+# phase 18 (examples): the port's examples in-process on the card, at their
+# defaults; the serving and training runs cut as the examples' tests cut
+# them (a checkpoint directory under a temporary directory is added)
+EXAMPLE_ARGS = {
+    "torch_quickstart": [],
+    "torch_autotune_formats": [],
+    "torch_serve_lm": ["--sparse", "--requests", "2", "--slots", "1", "--max-new-tokens", "2"],
+    "torch_train_lm": ["--steps", "20"],
+}
 # observed phase: run-time requests with repeats over the pool, served in
 # batches (calibration, the watchdog, SLO evaluation and fleet sync run once
 # per batch), and partitioned requests over PART_POOL with the bandit on
@@ -847,13 +895,14 @@ def run(cmd: list[str]) -> str:
 
 # ------------------------------------------------------------------ inputs
 def make_pool() -> dict[str, np.ndarray]:
+    """The pool at the served size; ``human_gene2`` (14,340 rows) at its
+    published size."""
     pool = {}
     for name in POOL:
-        spec = SUITE[name]
         if name == "human_gene2":
-            pool[name] = generate_by_name(name, scale=1.0, max_elems=spec.n**2)
+            pool[name] = generate_by_name(name, scale=1.0, max_elems=SUITE[name].n ** 2)
         else:
-            pool[name] = generate_by_name(name, scale=N_TARGET / spec.n)
+            pool[name] = served_matrix(name)
     return pool
 
 
@@ -865,8 +914,8 @@ def make_hetero() -> np.ndarray:
     """n = 14,000: the top half of a 64-wide dense band stacked on the bottom
     half of a power-law matrix (the shape of the reference tests'
     ``hetero_matrix``, with a band narrow enough to hold dense on the host)."""
-    top = random_matrix(N_TARGET, 64, "denseband", seed=1)[: N_TARGET // 2]
-    bot = random_matrix(N_TARGET, 3.0, "powerlaw", seed=2)[N_TARGET // 2 :]
+    top = random_matrix(SERVED_ROWS, 64, "denseband", seed=1)[: SERVED_ROWS // 2]
+    bot = random_matrix(SERVED_ROWS, 3.0, "powerlaw", seed=2)[SERVED_ROWS // 2 :]
     return np.vstack([top, bot]).astype(np.float32)
 
 
@@ -3150,11 +3199,14 @@ def rg_logits_check(pruned, cfg, engine) -> tuple[dict, dict]:
     one of the 24 FFN products of the step, the engine's route against the
     dense bf16 contraction on the same token vectors, <= 3e-2; and the
     logits against the dense path's <= 3e-2 where the model is conditioned
-    for it: the distance a 1e-5 relative change of the FFN outputs alone
-    makes to the dense logits (``sensitivity``, below bf16's rounding) must
-    itself be within the bound, else the logits bound nothing and are
-    reported (at this model's random initialisation a one-ulp bf16 change
-    can move its near one-hot local attention). With the device's busy
+    for it: the distance a relative change of the FFN outputs alone, as
+    large as the engine's own measured distance from the dense contraction
+    (``ffn_err_max``), makes to the dense logits (``sensitivity``, the worst
+    of ``RG_PROBES`` draws) must itself be within the bound, else the logits
+    bound nothing and are reported (at this model's random initialisation a
+    one-ulp bf16 change can move its near one-hot local attention: on an
+    H100 two fp32 summation orders of B1, each within 1e-4 of float64, gave
+    logits 5.1e-3 and 0.234 from the dense path's). With the device's busy
     share of one engine step. Returns (checks, the bf16 step's token vectors at
     RG_B1_CHECK)."""
     rng = np.random.default_rng(SEED + 71)
@@ -3192,10 +3244,12 @@ def rg_logits_check(pruned, cfg, engine) -> tuple[dict, dict]:
                                     torch.einsum("td,df->tf", x, w).float().cpu().numpy())
             row["ffn_err_max"] = max(ffn.values())
             row["ffn_err_by_matrix"] = ffn
-            perturbed, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True,
-                                       engine=PerturbedHandle(1e-5, SEED + 72))
-            row["sensitivity"] = {"eps": 1e-5,
-                                  "err": scaled_err(perturbed.cpu().numpy(), d)}
+            eps, draws = row["ffn_err_max"], []
+            for k in range(RG_PROBES):
+                perturbed, _ = decode_step(pruned, c, cache, nxt, pos, unroll_layers=True,
+                                           engine=PerturbedHandle(eps, SEED + 72 + k))
+                draws.append(scaled_err(perturbed.cpu().numpy(), d))
+            row["sensitivity"] = {"eps": eps, "err": max(draws), "draws": draws}
             row["logits_asserted"] = row["sensitivity"]["err"] <= tol
             ok = (ok and row["ffn_err_max"] <= tol
                   and (row["err"] <= tol or not row["logits_asserted"]))
@@ -4630,11 +4684,11 @@ def card_point_check(errs: dict):
 
 
 def tuner_presets(shapes: dict):
-    """The paper's presets beside the pool, each cut to ``N_TARGET`` rows,
+    """The paper's presets beside the pool, each cut to ``SERVED_ROWS`` rows,
     generated as the collection reads them; their shapes and nonzeros kept
     in ``shapes`` (B1's launch reads no more)."""
     for name in TUNER_CSR_PRESETS:
-        dense = generate_by_name(name, scale=N_TARGET / SUITE[name].n)
+        dense = served_matrix(name)
         shapes[name] = SimpleNamespace(n_rows=dense.shape[0], n_cols=dense.shape[1],
                                        nnz=int(np.count_nonzero(dense)))
         yield name, dense
@@ -4773,14 +4827,18 @@ def profile_quality(ds, profile) -> dict:
                 "p90": float(np.percentile(v, 90))} for f, v in errs.items()}
 
 
-def tuner_labels(ds, ref_tuner, card_tuner, shapes: dict) -> dict:
+def tuner_labels(ds, ref_tuner, card_tuner, yardstick, shapes: dict) -> dict:
     """17(c): per matrix the default schedule's measured time, the measured
     best (the re-timed label), a ``decision_tree`` predictor's pick fitted
     leaving the matrix out, the reference-equal cost-model tuner's pick, the
     card cost model's pick (its constants fitted leaving the matrix out:
-    ``fit_card_profile``) and the card-labelled tuner's (``build_tuner()``
-    on the card), each at its point of the card's CSR space; per-knob
-    accuracy and the ratios between them. The ratios ``*_over_best`` divide
+    ``fit_card_profile``), the card-labelled tuner's (``build_tuner()`` on
+    the card, which learns its ``TUNER_NAMES`` at the served size too) and
+    the yardstick's (``yardstick_tuner``: ``build_tuner()`` as it stood,
+    tiny matrices only), each at its point of the card's CSR space; per-knob
+    accuracy and the ratios between them, those of the two built tuners
+    over all 16 matrices, over ``TUNER_NAMES`` (in sample) and over the
+    rest (held out). The ratios ``*_over_best`` divide
     first-pass times by the label's, which the tie rule may pick up to the
     in-turn spread above the fastest point (so they can fall below 1);
     ``over_fastest_in_turns`` divides each pick's in-turn time (its
@@ -4806,10 +4864,12 @@ def tuner_labels(ds, ref_tuner, card_tuner, shapes: dict) -> dict:
             "csr", ref_tuner.plan_compile_time(feats, "latency").schedule))
         served = csr_space.point_of(shapes[m], TuningConfig(
             "csr", card_tuner.plan_compile_time(feats, "latency").schedule))
+        yard = csr_space.point_of(shapes[m], TuningConfig(
+            "csr", yardstick.plan_compile_time(feats, "latency").schedule))
         t_def, t_best = measured_at(ds, m, default), best.latency
         turns = {k: 1e3 * in_turns_at(ds, m, c) for k, c in (
             ("default", default), ("best", best.config), ("loo", picked), ("model", model),
-            ("card_model", card), ("card_tuner", served))}
+            ("card_model", card), ("card_tuner", served), ("yardstick", yard))}
         for knob in ALL_KNOBS:
             field_ = KNOBS[knob][0]
             hits[knob] += getattr(picked.schedule, field_) == getattr(best.config.schedule, field_)
@@ -4819,13 +4879,20 @@ def tuner_labels(ds, ref_tuner, card_tuner, shapes: dict) -> dict:
                      "model": tag(model), "card_model_ms": 1e3 * measured_at(ds, m, card),
                      "card_model": tag(card),
                      "card_tuner_ms": 1e3 * measured_at(ds, m, served), "card_tuner": tag(served),
+                     "yardstick_ms": 1e3 * measured_at(ds, m, yard), "yardstick": tag(yard),
+                     "in_sample": m in TUNER_NAMES,
                      "fastest_ms": 1e3 * fastest_in_turns(ds, m), "turns_ms": turns,
                      "spread": ds.meta["spread"][m],
                      "beyond_spread": t_def > t_best * (1.0 + ds.meta["spread"][m]),
                      "fit_s": fit_s, "card_fit_s": card_fit_s})
-    def ratios(num, den):
-        r = np.array([row[num] / row[den] for row in rows])
+    def ratios(num, den, of=rows):
+        r = np.array([row[num] / row[den] for row in of])
         return {"geomean": float(np.exp(np.log(r).mean())), "max": float(r.max())}
+
+    def three_ways(num):  # all 16, build_tuner()'s names, the rest
+        return {"all": ratios(num, "best_ms"),
+                "in_sample": ratios(num, "best_ms", [r for r in rows if r["in_sample"]]),
+                "held_out": ratios(num, "best_ms", [r for r in rows if not r["in_sample"]])}
 
     def over_fastest(key):  # in-turn times where there are any, over the fastest
         r = np.array([row["turns_ms"][key] / row["fastest_ms"] for row in rows])
@@ -4838,10 +4905,12 @@ def tuner_labels(ds, ref_tuner, card_tuner, shapes: dict) -> dict:
             "loo_over_best": ratios("loo_ms", "best_ms"),
             "model_over_best": ratios("model_ms", "best_ms"),
             "card_model_over_best": ratios("card_model_ms", "best_ms"),
-            "card_tuner_over_best": ratios("card_tuner_ms", "best_ms"),
+            "card_tuner_over_best": three_ways("card_tuner_ms"),
+            "yardstick_over_best": three_ways("yardstick_ms"),
+            "in_sample": [r["matrix"] for r in rows if r["in_sample"]],
             "default_over_model": ratios("default_ms", "model_ms"),
             "over_fastest_in_turns": {k: over_fastest(k) for k in (
-                "default", "best", "loo", "model", "card_model", "card_tuner")},
+                "default", "best", "loo", "model", "card_model", "card_tuner", "yardstick")},
             "beyond_spread": sum(r["beyond_spread"] for r in rows),
             "best_bf16": sum(r["best"].endswith(("bf16_vmem", "bf16_stream")) for r in rows),
             "best_stream": sum(r["best"].endswith("_stream") for r in rows)}
@@ -5029,30 +5098,41 @@ def tuner_serve(card_tuner, pool: dict, web: np.ndarray, fps: dict,
             "b1_in_turns": timings}, got
 
 
-def tuner_runtime(card_tuner, ref_tuner, ds, pool: dict, fps: dict) -> tuple[dict, dict]:
+def tuner_runtime(card_tuner, ref_tuner, ds, pool: dict, fps: dict,
+                  tiny: list) -> tuple[dict, dict]:
     """17(e): run-time mode over the pool with the card-fitted tuner, its
     format against the reference-equal tuner's, each §5.3 decision with its
     gain, its overhead in seconds and its conversion's predicted and
     measured seconds (measured: the collection's conversion of the default
-    geometry at this size, ``meta["overhead"]``; predicted by a predictor
-    fitted with the matrix left out, the graded figure, median and worst,
-    and by the card tuner's own, fitted on these samples); converted
+    geometry at this size, ``meta["overhead"]``). Two predictors side by
+    side, each in sample and fitted with the matrix's served-size sample
+    left out (the graded figures): the card tuner's ``CardOverheadPredictor``
+    (``build_tuner()``'s samples at its scale, ``tiny``, and every served-size
+    sample of the collection) and the reference's ``OverheadPredictor`` on
+    the served-size samples it can learn from (``tuner_overhead_samples``,
+    the card tuner's predictor before ``CardOverheadPredictor``); the
+    feature pass likewise. Converted
     kernels against float64."""
     session = AutoSpmvSession(card_tuner)
     rng = np.random.default_rng(SEED + 172)
     reset_launches()
     rows = []
-    conversions = []
-    samples = tuner_overhead_samples(ds)
+    conversions, feature_pass = [], []
+    samples, ref_samples = overhead_samples(ds), tuner_overhead_samples(ds)
+    ref_in = OverheadPredictor().fit(ref_samples)
     for n, dense in pool.items():
         feats = extract_features(dense)
         x = rng.normal(size=dense.shape[1]).astype(np.float32)
-        held = OverheadPredictor().fit([s_ for s_ in samples if s_.matrix != n])
+        card_loo = CardOverheadPredictor().fit(tiny + [s_ for s_ in samples if s_.matrix != n])
+        ref_loo = OverheadPredictor().fit([s_ for s_ in ref_samples if s_.matrix != n])
+        by = {"card_s": card_tuner.overhead, "card_loo_s": card_loo, "ref_s": ref_in,
+              "ref_loo_s": ref_loo}
         for fmt, secs in ds.meta["overhead"][n]["conversion_s"].items():
             if secs is not None:
                 conversions.append({"matrix": n, "format": fmt, "measured_s": secs,
-                                    "predicted_s": card_tuner.overhead.predict_c(feats, fmt),
-                                    "predicted_loo_s": held.predict_c(feats, fmt)})
+                                    **{k: p.predict_c(feats, fmt) for k, p in by.items()}})
+        feature_pass.append({"matrix": n, "measured_s": ds.meta["overhead"][n]["features_s"],
+                             **{k: p.predict_f(feats) for k, p in by.items()}})
         for obj in OBJECTIVES:
             theirs = ref_tuner.plan_run_time(feats, obj)
             ours = card_tuner.plan_run_time(feats, obj)
@@ -5086,21 +5166,25 @@ def tuner_runtime(card_tuner, ref_tuner, ds, pool: dict, fps: dict) -> tuple[dic
         if "kernel" in r:
             want[r["kernel"]] += 1
     check_launches("tuner(runtime)", got, want)
-    # graded on the leave-one-out predictions only: the card tuner's
-    # predictor was fitted on these very samples
-    loo = [c["predicted_loo_s"] / c["measured_s"] for c in conversions]
-    worst = max(range(len(loo)), key=lambda i: abs(np.log(max(loo[i], 1e-12))))
+
+    def graded(key, of):  # predicted / measured; the left-out figures are the graded ones
+        r = [c[key] / c["measured_s"] for c in of]
+        worst = max(range(len(r)), key=lambda i: abs(np.log(max(r[i], 1e-12))))
+        return {"median": float(np.median(r)), "worst": r[worst],
+                "worst_at": [of[worst]["matrix"], of[worst].get("format", "features")],
+                "within_2x": sum(0.5 <= v <= 2.0 for v in r),
+                "within_4x": sum(0.25 <= v <= 4.0 for v in r), "of": len(r),
+                "outside_4x": [[c["matrix"], c.get("format", "features"), v]
+                               for c, v in zip(of, r) if not 0.25 <= v <= 4.0],
+                "zero": sum(c[key] <= 0.0 for c in of)}
+    keys = ("card_loo_s", "card_s", "ref_loo_s", "ref_s")
     return {"decisions": rows, "agree": sum(r["agree"] for r in rows), "of": len(rows),
             "converted": sum(bool(r.get("convert")) for r in rows), "launches": got,
-            "conversions": conversions,
-            "predicted_over_measured": {
-                "median_loo": float(np.median(loo)), "worst_loo": loo[worst],
-                "worst_loo_at": [conversions[worst]["matrix"], conversions[worst]["format"]],
-                "within_2x_loo": sum(0.5 <= r <= 2.0 for r in loo), "of": len(loo),
-                "zero_loo": sum(c["predicted_loo_s"] <= 0.0 for c in conversions),
-                "median_in_sample": float(np.median([c["predicted_s"] / c["measured_s"]
-                                                     for c in conversions]))},
-            "overhead_samples": [s_.matrix for s_ in samples]}, got
+            "conversions": conversions, "feature_pass": feature_pass,
+            "predicted_over_measured": {k: graded(k, conversions) for k in keys},
+            "feature_pass_predicted_over_measured": {k: graded(k, feature_pass) for k in keys},
+            "overhead_samples": {"card": [s_.matrix for s_ in tiny + samples],
+                                 "reference": [s_.matrix for s_ in ref_samples]}}, got
 
 
 def tuner_overhead_samples(ds) -> list:
@@ -5113,7 +5197,26 @@ def tuner_overhead_samples(ds) -> list:
     return [s_ for s_ in overhead_samples(ds) if {"csr", "ell", "sell"} <= set(s_.c_latency)]
 
 
-def run_tuner_phase(tuner, pool: dict, web: np.ndarray, fps: dict,
+def scale_overhead_samples() -> list:
+    """``build_tuner()``'s §5.3 samples at its ``scale``: the tiny training
+    matrices' feature passes and conversions, on the card."""
+    return [measure_overheads(generate_by_name(n, scale=TUNER_SCALE), n, device=DEVICE)
+            for n in TUNER_NAMES]
+
+
+def yardstick_tuner() -> AutoSpMV:
+    """``build_tuner()`` on the card as it stood before it learnt at the
+    served size: the card cost model's labels of the tiny training matrices
+    at ``scale`` alone, and the reference's §5.3 ridge on their samples.
+    Phase 17 grades ``build_tuner()``'s picks and predictions against it."""
+    model = CardCostModel()
+    ds = collect_dataset(scale=TUNER_SCALE, names=TUNER_NAMES, n_extra=TUNER_EXTRA, model=model)
+    pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=DEVICE)).fit(ds)
+    return AutoSpMV(pred, OverheadPredictor().fit(scale_overhead_samples()), device=DEVICE,
+                    dataset=ds, cost_model=model)
+
+
+def run_tuner_phase(tuner, yardstick, pool: dict, web: np.ndarray, fps: dict,
                     csr_schedule, web_schedule) -> tuple[dict, dict]:
     """Phase 17: the tuner learns the card. (a) B1's carveout knob, (b) the
     card's dataset (BELL by its true storage, the candidates re-timed in
@@ -5121,8 +5224,10 @@ def run_tuner_phase(tuner, pool: dict, web: np.ndarray, fps: dict,
     the default, the reference-equal and the card cost models and
     leave-one-out, (d) compile-time serving with the card-fitted tuner, (e)
     run-time mode with it, (f) B3's bf16 sums against its parent. ``tuner``
-    is ``build_tuner()`` on the card (labelled by ``CardCostModel``).
-    Returns (payload, launches of the served paths (d) and (e))."""
+    is ``build_tuner()`` on the card (labelled by ``CardCostModel``, at its
+    scale and at the served size), ``yardstick`` the same built as it stood
+    before (``yardstick_tuner``). Returns (payload, launches of the served
+    paths (d) and (e))."""
     out, secs = {}, {}
     t0 = time.perf_counter()
     out["carveout"] = tuner_carveout(pool, web, csr_schedule, web_schedule)
@@ -5137,24 +5242,96 @@ def run_tuner_phase(tuner, pool: dict, web: np.ndarray, fps: dict,
     out["card_profile"] = {"terms": list(CARD_TERMS), "coef": dict(profile.coef),
                            "fit_quality": profile_quality(ds, profile),
                            "committed_quality": profile_quality(ds, CardCostModel().profile)}
-    out["labels"] = tuner_labels(ds, ref_tuner, tuner, shapes)
+    out["labels"] = tuner_labels(ds, ref_tuner, tuner, yardstick, shapes)
     secs["c"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=DEVICE)).fit(ds)
-    overhead = OverheadPredictor().fit(tuner_overhead_samples(ds))
+    tiny = scale_overhead_samples()
+    overhead = CardOverheadPredictor().fit(tiny + overhead_samples(ds))
     card_tuner = AutoSpMV(pred, overhead, device=DEVICE, dataset=ds,
                           cost_model=CardCostModel(profile))
     out["fit_s"] = time.perf_counter() - t0
     out["serve"], got = tuner_serve(card_tuner, pool, web, fps, csr_schedule, web_schedule)
     secs["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["runtime"], got_rt = tuner_runtime(card_tuner, ref_tuner, ds, pool, fps)
+    out["runtime"], got_rt = tuner_runtime(card_tuner, ref_tuner, ds, pool, fps, tiny)
     secs["e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["sell_bf16"] = tuner_sell_bf16(pool)
     secs["f"] = time.perf_counter() - t0
     out["part_seconds"] = secs
     return out, {k: got[k] + got_rt[k] for k in got}
+
+
+# ---------------------------------------------------------------- examples
+def load_example(name: str):
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "examples",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_figures(name: str, out) -> list[dict]:
+    """The correctness figures an example prints, each with its tolerance:
+    a kernel's y against the dense product (scaled by max |y|: 1e-4 at
+    fp32, 3e-2 at bf16 accumulation), the sparse-served decode logits
+    against the dense (scaled by max |logit|: 1e-4 in fp32 compute, 3e-2 in
+    bf16), training's losses (finite)."""
+    if name == "torch_quickstart":
+        figs = [{"what": "compile-time csr", "err": out["kernel_err"],
+                 "tol": tol_of(out["schedule"]), "schedule": sched_tag(out["schedule"])}]
+        if out["converted"] is not None:
+            c = out["converted"]
+            figs.append({"what": f"converted {c['format']}", "err": c["err"],
+                         "tol": tol_of(c["schedule"]), "schedule": sched_tag(c["schedule"])})
+        return figs
+    if name == "torch_autotune_formats":
+        return [{"what": f"{row['matrix']} {c['format']}", "err": c["err"],
+                 "tol": tol_of(c["schedule"]), "schedule": sched_tag(c["schedule"])}
+                for row, c in zip(out["rows"], out["checks"])]
+    if name == "torch_serve_lm":
+        n = out["numerics"]
+        return [{"what": "sparse vs dense decode logits", "compute": n["compute_dtype"],
+                 "max_abs_diff": n["max_abs_diff"],
+                 "err": n["max_abs_diff"] / (n["max_abs_logit"] + 1e-9),
+                 "tol": 1e-4 if n["compute_dtype"] == "float32" else 3e-2}]
+    losses = [h["loss"] for h in out.history]
+    return [{"what": "training losses", "first": losses[0], "last": losses[-1],
+             "err": 0.0 if np.isfinite(losses).all() else float("inf"), "tol": 0.0}]
+
+
+def run_examples_phase() -> tuple[dict, dict]:
+    """Phase 18: each of ``examples/torch_*.py`` through its ``main(argv)``
+    on the card (``EXAMPLE_ARGS``), its printed lines captured: seconds,
+    launches per kernel, the correctness figures it prints against their
+    tolerances. The three SpMV and LM-serving examples must launch at least
+    one of B1-B8; training launches none. Returns (payload, launches)."""
+    out, total = {}, {k: 0 for k in WRAPPERS}
+    with tempfile.TemporaryDirectory(prefix="examples-") as tmp:
+        for name, argv in EXAMPLE_ARGS.items():
+            if name == "torch_train_lm":
+                argv = [*argv, "--ckpt-dir", os.path.join(tmp, "train_lm")]
+            mod = load_example(name)
+            printed = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                res = mod.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = read_launches()
+            figs = example_figures(name, res)
+            row = {"argv": argv, "seconds": secs, "launches": got, "figures": figs,
+                   "printed": printed.getvalue().splitlines()}
+            out[name] = row
+            if not all(np.isfinite(f["err"]) and f["err"] <= f["tol"] for f in figs):
+                raise AssertionError(f"examples: {name} out of tolerance: {row}")
+            if (sum(got.values()) == 0) != (name == "torch_train_lm"):
+                raise AssertionError(f"examples: {name} launched {got}")
+            for k in total:
+                total[k] += got[k]
+    return out, total
 
 
 def main() -> None:
@@ -5193,6 +5370,9 @@ def main() -> None:
     t0 = time.perf_counter()
     tuner = build_tuner()  # device=None: the card
     tuner_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    yardstick = yardstick_tuner()  # build_tuner() as it stood: phase 17's yardstick
+    yardstick_s = time.perf_counter() - t0
     # the schedule compile-time mode will serve human_gene2's CSR kernel with
     csr_schedule = tuner.plan_compile_time(
         extract_features(pool["human_gene2"]), "latency"
@@ -5234,6 +5414,8 @@ def main() -> None:
                 if k.endswith(served)}
     torch.cuda.empty_cache()
     emit("check", seconds=time.perf_counter() - t0, tuner_seconds=tuner_s,
+         yardstick_tuner_seconds=yardstick_s,
+         tuner_served=tuner.dataset.meta["served"], tuner_overhead=type(tuner.overhead).__name__,
          kernels={f: {k: e[k] for k in ("matrix", "schedule", "max_abs_err", "ms")}
                   for f, e in checked.items()},
          sell_launch=checked["sell"].pop("launch"),
@@ -5542,12 +5724,20 @@ def main() -> None:
 
     # ---- tuner: the card's dataset, both modes fitted on it and served ---
     t0 = time.perf_counter()
-    tuner_run, got = run_tuner_phase(tuner, pool, extra["webgraph"], fps, csr_schedule,
-                                     web_schedule)
+    tuner_run, got = run_tuner_phase(tuner, yardstick, pool, extra["webgraph"], fps,
+                                     csr_schedule, web_schedule)
     for k in launches:
         launches[k] += got[k]
     torch.cuda.empty_cache()
     emit("tuner", seconds=time.perf_counter() - t0, launches=got, **tuner_run)
+
+    # ---- examples: the port's four examples in-process (B1-B4; none in train)
+    t0 = time.perf_counter()
+    examples, got = run_examples_phase()
+    for k in launches:
+        launches[k] += got[k]
+    torch.cuda.empty_cache()
+    emit("examples", seconds=time.perf_counter() - t0, launches=got, examples=examples)
 
     missing = [k for k in KERNEL_ORDER if launches[k] <= 0]
     if missing:

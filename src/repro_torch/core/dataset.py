@@ -37,7 +37,7 @@ from typing import Callable, Iterable, Mapping, Sequence
 
 import numpy as np
 
-from repro_torch.core.features import SparsityFeatures, extract_features
+from repro_torch.core.features import SparsityFeatures, extract_features, features_from_row_counts
 from repro_torch.core.objectives import (
     MINIMIZE,
     OBJECTIVES,
@@ -491,9 +491,13 @@ def collect_dataset(
         except StopIteration:
             break
         t_feat = time.perf_counter()
-        feats = extract_features(dense)
-        features_s = time.perf_counter() - t_feat
-        stats = MatrixStats(dense)
+        if measure:  # the feature pass as run-time mode pays it (§5.3)
+            feats = extract_features(dense)
+            features_s = time.perf_counter() - t_feat
+            stats = MatrixStats(dense)
+        else:  # labels alone: the row histogram the statistics already hold
+            stats = MatrixStats(dense)
+            feats = features_from_row_counts(stats.row_counts, stats.n_rows)
         points = space.points(stats) if card else space
         t_model = time.perf_counter()
         for cfg in points:

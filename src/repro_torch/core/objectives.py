@@ -295,8 +295,10 @@ class CardCostModel:
         spec = get_format(fmt)
         if spec.card_work is None or spec.card_launch is None:
             return None
+        # a launch's work is its float32 twin's but for the accumulator flag
+        twin = schedule.replace(accum_dtype="float32")
         try:
-            at = spec.card_launch(stats, schedule, self.profile.n_sms)
+            at = spec.card_launch(stats, twin, self.profile.n_sms)
         except ValueError:  # no launch plan for this point
             return None
         if not at.feasible:
@@ -304,8 +306,8 @@ class CardCostModel:
         seen = self._seen.setdefault(stats, {})
         key = (fmt, at.geometry, at.launch)
         if key not in seen:
-            seen[key] = spec.card_work(stats, schedule, self.profile.n_sms)
-        return seen[key]
+            seen[key] = spec.card_work(stats, twin, self.profile.n_sms)
+        return seen[key]._replace(bf16=schedule.accum_dtype == "bfloat16")
 
     def evaluate(
         self, stats: MatrixStats, fmt: str, schedule: KernelSchedule

@@ -5,6 +5,13 @@ Total run-time-mode overhead = f_latency (feature extraction) + o_latency
 (conversion). f and c dominate and scale with the matrix; o and p are
 constant-time model inferences. Auto-SpMV converts only when the predicted
 gain over the remaining solver iterations exceeds the predicted overhead.
+
+``OverheadPredictor`` is the reference's (a ridge per format, clamped at
+0). ``CardOverheadPredictor`` is the card's: per format a fixed cost plus
+the dense scan (n^2) plus the nonzeros, non-negative, so positive by
+construction and rising with the matrix; it carries samples of the tiny
+training matrices and a few at the sizes the card serves
+(``measure_served_overheads``) to any served matrix.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.features import SparsityFeatures, extract_features
-from repro_torch.kernels.common import resolve_device
+from repro_torch.core.objectives import _nnls
+from repro_torch.kernels.common import DEFAULT_SCHEDULE, InfeasibleConfig, resolve_device
 from repro_torch.ml.linear import Ridge
 from repro_torch.sparse.formats import from_dense
 from repro_torch.sparse.registry import format_names
@@ -46,6 +54,32 @@ def measure_overheads(
     for fmt in format_names():
         t0 = time.perf_counter()
         _block(from_dense(dense, fmt, device=device))
+        c_latency[fmt] = time.perf_counter() - t0
+    return OverheadSample(name, feats, f_latency, c_latency)
+
+
+def measure_served_overheads(
+    dense: np.ndarray, name: str = "?", *, device=None
+) -> OverheadSample:
+    """The overheads as run-time mode pays them on a served matrix: the
+    feature pass, and per format the conversion of the default schedule's
+    storage through ``compile_spmv`` (arrays on ``device``; ``None`` =
+    CUDA), as a measured card collection keeps them (``meta["overhead"]``).
+    A format whose storage guard refuses the matrix has no entry: the
+    reference's ``measure_overheads`` would build that storage unguarded."""
+    from repro_torch.kernels.ops import compile_spmv
+
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    feats = extract_features(dense)
+    f_latency = time.perf_counter() - t0
+    c_latency = {}
+    for fmt in format_names():
+        t0 = time.perf_counter()
+        try:
+            _block(compile_spmv(dense, fmt, DEFAULT_SCHEDULE, device=device).mat)
+        except InfeasibleConfig:
+            continue
         c_latency[fmt] = time.perf_counter() - t0
     return OverheadSample(name, feats, f_latency, c_latency)
 
@@ -110,3 +144,53 @@ class OverheadPredictor:
         paper measures ~20 ms on its host; ours are single ridge/tree
         inferences, defaulting to 2 ms)."""
         return self.predict_f(features) + self.predict_c(features, fmt) + 2 * inference_latency
+
+
+def _size_terms(features: SparsityFeatures) -> np.ndarray:
+    # a fixed cost, the host's scan of the dense input (n x n: the served
+    # matrices are square) and the work per nonzero
+    return np.array([1.0, features.n * features.n, features.nnz])
+
+
+class _SizeLaw:
+    """seconds = a + b n^2 + c nnz with a, b, c >= 0: non-negative least
+    squares on relative error (``objectives._nnls``, as ``fit_card_profile``
+    fits the card's kernels)."""
+
+    def __init__(self, samples: list[tuple[SparsityFeatures, float]]):
+        X = np.stack([_size_terms(f) for f, _ in samples])
+        y = np.array([max(t, 1e-9) for _, t in samples])
+        self.coef = _nnls(X / y[:, None], np.ones_like(y))
+
+    def predict(self, features: SparsityFeatures) -> float:
+        return float(_size_terms(features) @ self.coef)
+
+
+class CardOverheadPredictor(OverheadPredictor):
+    """f_latency / c_latency on the card's host: for the feature pass and
+    for each format a sum of non-negative terms, a fixed cost, the scan of
+    the dense input (n^2) and the nonzeros, each fitted on the samples
+    that measured it (a served-size sample lacks the formats the storage
+    guard refused). Positive, and rising with n and nnz, wherever it is
+    asked, so samples of tiny matrices and a few at the served size carry
+    it to the largest served matrices, where the reference's ridge,
+    extrapolated, predicts 0 s (clamped) or a hundred times the cost. A
+    format no sample measured is charged the dearest prediction of the
+    others, as the reference does."""
+
+    def fit(self, samples: list[OverheadSample]) -> "CardOverheadPredictor":
+        self._f_model = _SizeLaw([(s.features, s.f_latency) for s in samples])
+        self._c_models = {}
+        for fmt in sorted({f for s in samples for f in s.c_latency}):
+            self._c_models[fmt] = _SizeLaw(
+                [(s.features, s.c_latency[fmt]) for s in samples if fmt in s.c_latency])
+        return self
+
+    def predict_f(self, features: SparsityFeatures) -> float:
+        return self._f_model.predict(features)
+
+    def predict_c(self, features: SparsityFeatures, fmt: str) -> float:
+        model = self._c_models.get(fmt)
+        if model is None:
+            return max(m.predict(features) for m in self._c_models.values())
+        return model.predict(features)

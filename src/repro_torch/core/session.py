@@ -50,6 +50,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
@@ -1016,6 +1017,128 @@ class AutoSpmvSession:
         return self.cache.save(target)
 
 
+# Rows of a matrix at the size the card serves: chip_smoke.py cuts the
+# paper's presets to it, and the LM's FFN matrices have 1,024-10,944 rows.
+# A tuner labelled by the card's cost model learns there too; the reference
+# trains and serves at its tiny ``scale`` (its kernels run interpreted).
+SERVED_ROWS = 14_000
+# of a tuner's matrices, how many give the card's §5.3 predictor a sample at
+# the served size (a conversion there takes 0.2-2 s)
+SERVED_OVERHEAD_MATRICES = 3
+
+
+def served_matrix(name: str) -> np.ndarray:
+    """Preset ``name`` cut to ``SERVED_ROWS`` rows (``generate_by_name`` at
+    ``SERVED_ROWS / n``, capped at 1: a smaller preset stays whole)."""
+    from repro_torch.sparse.generate import SUITE, generate_by_name
+
+    n = SUITE[name].n
+    return generate_by_name(name, scale=min(1.0, SERVED_ROWS / n), max_elems=n * n)
+
+
+# Process-wide memos of the served-size samples, one entry per preset: each
+# costs seconds (a 0.8 GB dense scan, the card model over every launch, or
+# real conversions), and one process builds several tuners over the same
+# presets (the CLIs, the LM engines). Their keys carry what the samples
+# depend on: the size, the model's constants, the registered formats and
+# the storage guard, or the device.
+@lru_cache(maxsize=64)
+def _served_records(name: str, rows: int, profile, hw, formats: tuple, max_storage: int):
+    from repro_torch.core.dataset import collect_dataset
+    from repro_torch.core.objectives import CardCostModel
+    from repro_torch.core.tuning_space import full_space
+
+    def one():
+        dense = served_matrix(name)
+        yield f"{name}@{dense.shape[0]}", dense
+
+    return tuple(collect_dataset(matrices=one(), space=list(full_space(formats)),
+                                 model=CardCostModel(profile, hw)).records)
+
+
+@lru_cache(maxsize=64)
+def _served_overhead(name: str, rows: int, device: torch.device, formats: tuple):
+    from repro_torch.core.overhead import measure_served_overheads
+
+    dense = served_matrix(name)
+    return measure_served_overheads(dense, f"{name}@{dense.shape[0]}", device=device)
+
+
+def default_cost_model(device: torch.device):
+    """The model that labels a tuner on ``device``: the card's
+    ``CardCostModel`` on a CUDA device, the reference-equal ``CostModel``
+    elsewhere (every CPU parity test of plans depends on it)."""
+    from repro_torch.core.objectives import CardCostModel, CostModel
+
+    return CardCostModel() if device.type == "cuda" else CostModel()
+
+
+def tuning_dataset(scale: float, names, n_extra: int, model):
+    """``collect_dataset`` of ``names`` at ``scale`` and ``n_extra``
+    augmentation matrices, labelled by ``model``; where ``model`` is the
+    card's ``CardCostModel``, each of ``names`` also at the size the card
+    serves (``SERVED_ROWS``, records of ``"<name>@<rows>"``), labelled by
+    that model from the matrix's statistics alone: no conversion, no
+    timing. ``meta["served"]`` lists those matrices."""
+    import dataclasses
+
+    from repro_torch.core.dataset import TuningDataset, TuningRecord, collect_dataset
+    from repro_torch.core.objectives import INFEASIBLE, CardCostModel
+    from repro_torch.core.tuning_space import TuningConfig, schedule_space
+    from repro_torch.sparse import registry
+
+    ds = collect_dataset(scale=scale, names=names, n_extra=n_extra, model=model)
+    if not isinstance(model, CardCostModel):
+        return ds
+    # the card model prices the formats with a card launch and calls every
+    # other point infeasible: those records are made here, so that a plugin
+    # registered later does not relabel the priced formats
+    formats = format_names()
+    priced = tuple(f for f in formats if registry.get_format(f).card_work is not None
+                   and registry.get_format(f).card_launch is not None)
+    served = []
+    for name in names:
+        recs = _served_records(name, SERVED_ROWS, model.profile, model.hw, priced,
+                               registry.MAX_STORAGE_BYTES)
+        by_fmt: dict[str, list] = {}
+        for r in recs:
+            by_fmt.setdefault(r.config.fmt, []).append(dataclasses.replace(r))
+        for fmt in formats:
+            served += by_fmt.get(fmt) or [
+                TuningRecord(recs[0].matrix, recs[0].features, TuningConfig(fmt, s),
+                             INFEASIBLE.latency, INFEASIBLE.energy, INFEASIBLE.power,
+                             INFEASIBLE.efficiency, INFEASIBLE.feasible, recs[0].source)
+                for s in schedule_space()]
+    matrices = list(dict.fromkeys(r.matrix for r in served))
+    return TuningDataset(ds.records + served, {
+        **ds.meta, "served": {"rows": SERVED_ROWS, "matrices": matrices},
+        "n_matrices": ds.meta["n_matrices"] + len(matrices)})
+
+
+def overhead_predictor(scale: float, names, model, device):
+    """The §5.3 predictor a tuner on ``device`` gates conversions with: the
+    reference's ``OverheadPredictor`` on ``measure_overheads`` of ``names``
+    at ``scale``; where ``model`` is the card's ``CardCostModel``,
+    ``CardOverheadPredictor`` on those samples and on the first
+    ``SERVED_OVERHEAD_MATRICES`` of ``names`` at the served size
+    (``measure_served_overheads``)."""
+    from repro_torch.core.objectives import CardCostModel
+    from repro_torch.core.overhead import (
+        CardOverheadPredictor,
+        OverheadPredictor,
+        measure_overheads,
+    )
+    from repro_torch.sparse.generate import generate_by_name
+
+    samples = [measure_overheads(generate_by_name(n, scale=scale), n, device=device)
+               for n in names]
+    if not isinstance(model, CardCostModel):
+        return OverheadPredictor().fit(samples)
+    served = [_served_overhead(n, SERVED_ROWS, device, tuple(format_names()))
+              for n in names[:SERVED_OVERHEAD_MATRICES]]
+    return CardOverheadPredictor().fit(samples + served)
+
+
 def build_tuner(
     scale: float = 0.0015,
     names: tuple[str, ...] | None = None,
@@ -1034,28 +1157,20 @@ def build_tuner(
     kernels and the overhead samples' conversions put their arrays.
     ``model`` labels the dataset and scores partitioned plans: by default
     the card's ``CardCostModel`` on a CUDA device and the reference-equal
-    ``CostModel`` on the CPU; either may be passed on either device.
+    ``CostModel`` on the CPU (``default_cost_model``); either may be passed
+    on either device. With the card's model the dataset and the §5.3
+    predictor also learn at the size the card serves (``tuning_dataset``,
+    ``overhead_predictor``).
     """
-    from repro_torch.core.dataset import collect_dataset
-    from repro_torch.core.objectives import CardCostModel, CostModel
-    from repro_torch.core.overhead import OverheadPredictor, measure_overheads
     from repro_torch.core.predictor import AutoSpmvPredictor, PredictorConfig
-    from repro_torch.sparse.generate import MATRIX_NAMES, generate_by_name
-
     from repro_torch.kernels.common import resolve_device
+    from repro_torch.sparse.generate import MATRIX_NAMES
 
     device = resolve_device(device)
     if model is None:
-        model = CardCostModel() if device.type == "cuda" else CostModel()
+        model = default_cost_model(device)
     names = tuple(names) if names is not None else MATRIX_NAMES[:8]
-    ds = collect_dataset(scale=scale, names=names, n_extra=n_extra, model=model)
+    ds = tuning_dataset(scale, names, n_extra, model)
     pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=device)).fit(ds)
-    overhead = None
-    if fit_overhead:
-        overhead = OverheadPredictor().fit(
-            [
-                measure_overheads(generate_by_name(n, scale=scale), n, device=device)
-                for n in names
-            ]
-        )
+    overhead = overhead_predictor(scale, names, model, device) if fit_overhead else None
     return AutoSpMV(pred, overhead, device=device, dataset=ds, cost_model=model)

@@ -128,12 +128,18 @@ class MatrixStats:
     @lru_cache(maxsize=16)
     def block_occupancy(self, br: int, bc: int) -> tuple[int, int]:
         """(#occupied blocks, max occupied blocks per block-row)."""
-        pr, pc = ceil_to(self.n_rows, br), ceil_to(self.n_cols, bc)
-        m = np.zeros((pr, pc), dtype=bool)
-        m[: self.n_rows, : self.n_cols] = self._mask
-        occ = m.reshape(pr // br, br, pc // bc, bc).any(axis=(1, 3))
+        if self.n_rows == 0 or self.n_cols == 0:
+            return 0, 0
+        occ = np.logical_or.reduceat(self._column_blocks(bc), np.arange(0, self.n_rows, br),
+                                     axis=0)
         per_row = occ.sum(axis=1)
         return int(occ.sum()), int(per_row.max(initial=0))
+
+    @lru_cache(maxsize=4)
+    def _column_blocks(self, bc: int) -> np.ndarray:
+        # each row's occupied column blocks: one scan of the mask serves
+        # every block height
+        return np.logical_or.reduceat(self._mask, np.arange(0, self.n_cols, bc), axis=1)
 
     @lru_cache(maxsize=16)
     def sell_storage(self, C: int, q: int) -> tuple[int, int]:
@@ -697,12 +703,11 @@ def _sell_card_launch(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) 
                       (_plan_key(plan), schedule.unroll, schedule.accum_dtype))
 
 
-def _sell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
-    # B3: thread p * C + r of a slice takes row r's elements p, p + P, ...
-    # in steps of P x unroll; a warp stops after the first step at which
-    # every thread's last element is padding, or at its slices' widest
-    C, U = schedule.rows_per_block, schedule.unroll
-    q = schedule.nnz_tile
+@lru_cache(maxsize=1)
+def _sell_threads(stats: MatrixStats, C: int, q: int, n_sms: int):
+    # B3's plan at slices of C rows and widths rounded up to q, and per
+    # thread its slice's width and its row's length (the work of each
+    # unroll reads them; the card model walks one (C, q)'s unrolls in turn)
     total, _ = stats.sell_storage(C, q)
     n_slices = -(-stats.n_rows // C)
     plan = sell_launch_plan(n_slices, C, total / max(n_slices * C, 1), n_sms)
@@ -718,6 +723,16 @@ def _sell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) ->
     p, r = (local % (P * C)) // C, local % C
     width = np.where(ok, widths[sl], 0)
     live = np.where(ok, lens[sl * C + r], 0)
+    return plan, n_slices, p, ok, width, live
+
+
+def _sell_card_work(stats: MatrixStats, schedule: KernelSchedule, n_sms: int) -> CardWork:
+    # B3: thread p * C + r of a slice takes row r's elements p, p + P, ...
+    # in steps of P x unroll; a warp stops after the first step at which
+    # every thread's last element is padding, or at its slices' widest
+    C, U = schedule.rows_per_block, schedule.unroll
+    plan, n_slices, p, ok, width, live = _sell_threads(stats, C, schedule.nnz_tile, n_sms)
+    P, threads = plan["row_threads"], plan["threads"]
     step = P * U
     own = np.maximum((live - (U - 1) * P - p + step - 1) // step, 0) + 1
     warp_steps = np.minimum(own.reshape(-1, 32).max(axis=1),

@@ -54,6 +54,30 @@ ZOO_MODULES = (
 )
 
 
+# the port's examples: scripts beside the reference's, importable for main(argv)
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_importing_the_examples_leaves_no_jax_and_no_reference_package():
+    assert [p.stem for p in EXAMPLES] == [
+        "torch_autotune_formats", "torch_quickstart", "torch_serve_lm", "torch_train_lm"]
+    code = (
+        "import importlib.util, sys\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(p.rsplit('/', 1)[-1][:-3], p)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main), p\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""}, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("clean")
+
+
 def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     mods = _module_names()
     assert len(mods) >= 40 and "repro_torch.launch.serve" in mods
@@ -77,7 +101,7 @@ def test_importing_every_module_leaves_no_jax_and_no_reference_package():
     assert out.stdout.startswith("clean")
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_file_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())
