@@ -6,8 +6,8 @@
 //   AccBF16  both operands, every product and every running sum are rounded
 //            to bfloat16 (round-to-nearest-even) and carried as float, which
 //            reproduces bf16 accumulation without bf16 registers.
-// kRounds says whether a policy rounds its sums (B3 then folds its bf16 sums
-// into a float32 carry every 128 of a row's products).
+// kRounds says whether a policy rounds its sums (B1 and B3 then keep each
+// bf16 running sum within 128 of a row's products and carry in float32).
 // Launch helpers return cudaGetLastError() as an int; kernels launch on the
 // stream they are given, never synchronise and allocate nothing.
 #pragma once

@@ -9,8 +9,8 @@
 // CUDA blocks run in parallel and in no order, and rows are not monotone in
 // the stream (SELL slices are column-major, so 32 consecutive elements
 // belong to 32 rows; BELL streams come in panel order). Adding each run of
-// equal rows to y with a float atomic (the design this replaced, kept as
-// csrc/yardsticks/spmv_fused_scan.cu) costs one global atomic per nonzero
+// equal rows to y with a float atomic (the design this replaced; its times
+// are in PERF.md) costs one global atomic per nonzero
 // on a SELL stream, a memset of y before every launch, and one CTA per
 // stored tile. Here:
 //

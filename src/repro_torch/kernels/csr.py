@@ -26,7 +26,10 @@ hub rows cost. The schedule's knobs map to it as:
 ``rows_per_block``       rows per row CTA; its warps: min(rows_per_block,
                          8); the chunk CTAs have as many threads
 ``unroll``               accumulators per lane of a row warp
-``accum_dtype``          float32, or products and every sum rounded to bf16
+``accum_dtype``          float32, or bf16 products: a row warp's lanes sum
+                         them in bf16, folded into a float32 carry every
+                         ``CSR_CARRY_PRODUCTS`` of a row's products; chunk
+                         CTAs add them in float32; y is rounded once
 ``x_residency``          the SM's L1 / shared-memory split (x is read
                          through L1): ``"vmem"`` the least shared memory
                          that keeps the CTAs an SM holds, ``"stream"`` the
@@ -57,6 +60,9 @@ from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand
 CSR_MAX_THREADS = 256
 CSR_MAX_HUBS = 128
 CSR_ROUND = 8
+# bf16: a row's products between two folds of a lane's sums into its float32
+# carry (the kernel's kCarryProducts)
+CSR_CARRY_PRODUCTS = 128
 CSR_HUB_ROW = 1024  # a longer row goes to the chunk CTAs: 4 trips of a warp at unroll 8
 # hub_row when no row can be longer than CSR_HUB_ROW (a row holds at most
 # n_cols nonzeros): the kernel then launches no chunk CTA

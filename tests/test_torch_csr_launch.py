@@ -19,6 +19,7 @@ from repro.kernels import spmv_pallas
 from repro.sparse.generate import random_matrix
 from repro_torch.kernels.common import ROWS_PER_BLOCK_CHOICES, UNROLL_CHOICES, KernelSchedule
 from repro_torch.kernels.csr import (
+    CSR_CARRY_PRODUCTS,
     CSR_CHUNK_PER_THREAD,
     CSR_CHUNK_ROWS,
     CSR_HUB_ROW,
@@ -337,6 +338,14 @@ def _warp_tree(vals: list, bf16: bool) -> np.float32:
     return v[0]
 
 
+def _fold(acc: list, bf16: bool) -> np.float32:
+    """``spmv::fold``: a lane's accumulators added in order."""
+    s = acc[0]
+    for a in acc[1:]:
+        s = _add(s, a, bf16)
+    return s
+
+
 def _block_sum(per_thread: list, bf16: bool) -> np.float32:
     """``block_sum``: a shuffle tree per warp, then the warps' sums as a
     pairwise tree (warp w and w + half, halves down to 1)."""
@@ -360,6 +369,11 @@ def _combine(parts: list, T: int, bf16: bool) -> np.float32:
     return _block_sum(sums, bf16)
 
 
+def _stored(s, bf16: bool) -> np.float32:
+    """y as the kernel stores it: bf16 rounds the float32 total once."""
+    return _rnd(s) if bf16 else np.float32(s)
+
+
 def b1_emulate(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, x: np.ndarray,
                plan: dict, bf16: bool) -> tuple[np.ndarray, int]:
     """``csrc/spmv_csr.cu`` in numpy. Row CTAs: per short row the lanes'
@@ -367,7 +381,11 @@ def b1_emulate(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, x: np.ndarra
     CTAs: the emulated search, each hub row's part summed per thread (each
     round of CSR_ROUND products a pairwise tree, the rounds in order) and by
     ``block_sum``, the pieces of a row that crosses chunks added in chunk
-    order when the last one is in. Returns (y, pieces)."""
+    order when the last one is in. bf16: a lane folds its accumulators into a
+    float32 carry after each trip that reaches a multiple of
+    CSR_CARRY_PRODUCTS of the row's products, a chunk thread adds its bf16
+    products in float32, the trees and the pieces add float32 and y is
+    rounded once. Returns (y, pieces)."""
     n, nnz = len(ptr) - 1, len(vals)
     T, L, chunk, U = plan["threads"], plan["hub_row"], plan["chunk"], plan["unroll"]
     y = np.full(n, np.nan, np.float32)
@@ -377,17 +395,18 @@ def b1_emulate(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, x: np.ndarra
             continue
         lanes = []
         for lane in range(32):
-            acc = [np.float32(0.0)] * U
+            acc, carry = [np.float32(0.0)] * U, np.float32(0.0)
             for k in range(beg + lane, end, 32 * U):
                 for u in range(U):
                     kk = k + u * 32
                     if kk < end:
                         acc[u] = _fma(vals[kk], x[cols[kk]], acc[u], bf16)
-            s = acc[0]
-            for u in range(1, U):
-                s = _add(s, acc[u], bf16)
-            lanes.append(s)
-        y[r] = _warp_tree(lanes, bf16)
+                if bf16 and (k - beg - lane + 32 * U) % CSR_CARRY_PRODUCTS < 32 * U:
+                    carry = _add(carry, _fold(acc, True), False)
+                    acc = [np.float32(0.0)] * U
+            s = _fold(acc, bf16)
+            lanes.append(_add(s, carry, False) if bf16 else s)
+        y[r] = _stored(_warp_tree(lanes, False), bf16)
     end_part, start_part, tickets, pieces = {}, {}, {}, 0
     for h in range(plan["hub_ctas"]):
         k0, k1 = h * chunk, min((h + 1) * chunk, nnz)
@@ -406,14 +425,14 @@ def b1_emulate(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, x: np.ndarra
                     pr = [_prod(vals[kk], x[cols[kk]], bf16) if kk < end else np.float32(0.0)
                           for kk in range(k, k + T * CSR_ROUND, T)]
                     w = CSR_ROUND // 2
-                    while w:
-                        pr = [_add(pr[u], pr[u + w], bf16) for u in range(w)] + pr[w:]
+                    while w:  # bf16: the products are added in float32
+                        pr = [_add(pr[u], pr[u + w], False) for u in range(w)] + pr[w:]
                         w //= 2
-                    acc = _add(acc, pr[0], bf16)
+                    acc = _add(acc, pr[0], False)
                 per_thread.append(acc)
-            s = _block_sum(per_thread, bf16)
+            s = _block_sum(per_thread, False)
             if rbeg >= k0 and rend <= k1:
-                y[r] = s
+                y[r] = _stored(s, bf16)
             elif rend <= k1:
                 start_part[h] = s
                 crossing.append(r)
@@ -425,7 +444,8 @@ def b1_emulate(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray, x: np.ndarra
             a, b = int(ptr[r]) // chunk, (int(ptr[r + 1]) - 1) // chunk
             tickets[a] = tickets.get(a, 0) + 1
             if tickets[a] == b - a + 1:  # the last piece is in
-                y[r] = _combine([end_part[u] for u in range(a, b)] + [start_part[b]], T, bf16)
+                y[r] = _stored(_combine([end_part[u] for u in range(a, b)] + [start_part[b]], T,
+                                        False), bf16)
                 del tickets[a]
     assert not tickets  # every crossing row was added up
     return y, pieces
@@ -487,3 +507,30 @@ def test_b1_bf16_error_on_a_hub_row_is_below_one_running_sum():
         err = abs(float(y[1]) - ref[1]) / np.abs(ref).max()
         assert err < running_err / 4 and err < 3e-2
     assert running_err > 3e-2  # one running sum would fail the tolerance
+
+
+@pytest.mark.parametrize("unroll", UNROLL_CHOICES)
+def test_b1_bf16_row_path_folds_into_a_float32_carry(unroll):
+    """A row of 1,000 nonzeros is short (a row warp adds it): in bf16 its
+    lanes fold their sums into float32 carries every CSR_CARRY_PRODUCTS of
+    its products, so its error is that of the products and of y's one
+    rounding, far below one sequential bf16 running sum's."""
+    rng = np.random.default_rng(12)
+    n_cols = 1_000
+    dense = np.zeros((2, n_cols), np.float32)
+    dense[0] = rng.uniform(0.1, 1.0, size=n_cols)
+    dense[1, :7] = 1.0
+    x = rng.uniform(0.5, 1.5, size=n_cols).astype(np.float32)
+    ptr, cols = _indptr(dense), np.nonzero(dense)[1]
+    vals = dense[np.nonzero(dense)]
+    ref = dense.astype(np.float64) @ x.astype(np.float64)
+    run = np.float32(0.0)
+    for k in range(ptr[0], ptr[1]):
+        run = _add(run, _prod(vals[k], x[cols[k]], True), True)
+    running_err = abs(float(run) - ref[0]) / np.abs(ref).max()
+    plan = csr_launch_plan(2, len(vals), 8, unroll, H100_SMS, n_cols=n_cols)
+    assert plan["hub_ctas"] == 0  # 1,000 columns: no row can be a hub
+    y, _ = b1_emulate(ptr, cols, vals, x, plan, True)
+    err = abs(float(y[0]) - ref[0]) / np.abs(ref).max()
+    assert err < 2.0**-8 and err < running_err / 4
+    assert y[0] == _rnd(y[0])  # stored as bf16

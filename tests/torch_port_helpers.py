@@ -6,6 +6,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
+
+# The suite runs in several worker processes on a few cores, and each worker
+# collects every test file, so this holds in all of them: one intra-op
+# thread per process. At the default (a thread per core in every worker)
+# the pools oversubscribe the cores and the port's many small CPU ops wait
+# on one another's threads.
+torch.set_num_threads(1)
 
 # the six schedules of tests/test_kernels.py, as keyword dicts so each
 # package builds its own KernelSchedule from them
