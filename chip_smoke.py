@@ -608,6 +608,7 @@ from repro_torch.models.model import _embed, _logits, apply_block  # noqa: E402
 from repro_torch.models.moe import _capacity as moe_capacity  # noqa: E402
 from repro_torch.models.moe import select_dispatch_format  # noqa: E402
 from repro_torch.models.param import torch_dtype, tree_leaves, tree_map, tree_unflatten  # noqa: E402
+from repro_torch.obs.trace import tracing  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig,
     apply_adamw,
@@ -1592,22 +1593,29 @@ def cache_entry(session, dense, objective="latency"):
     return session.cache.peek(bucket, objective, f"part:max{MAX_BLOCKS}")
 
 
-def serve_partitioned_requests(session, server, part_pool, names, xs, fused: bool):
-    """One request per ``server.run`` call, so each request's span seconds
-    are read off the tracer as the difference around its call."""
-    from repro_torch.obs.trace import get_tracer
+def span_totals(spans: list[dict]) -> dict:
+    """Count and seconds of the spans, by name."""
+    out: dict[str, dict] = {}
+    for s in spans:
+        cell = out.setdefault(s["name"], {"count": 0, "total_s": 0.0})
+        cell["count"] += 1
+        cell["total_s"] += s["dur_s"]
+    return out
 
+
+def serve_partitioned_requests(session, server, part_pool, names, xs, fused: bool):
+    """One request per ``server.run`` call, traced, so each request's span
+    seconds are read off the tracer emptied before its call."""
     rows, blocks_served = [], {f: 0 for f in BLOCK_FORMATS}
-    tracer = get_tracer()
     for rid, (n, x) in enumerate(zip(names, xs)):
         dense = part_pool[n]
-        before = {k: v["total_s"] for k, v in tracer.summary()["by_name"].items()}
-        t0 = time.perf_counter()
-        (req,) = server.run([SpmvRequest(rid=rid, dense=dense, x=x, objective="latency")])
-        wall = time.perf_counter() - t0
-        after = tracer.summary()["by_name"]
-        spans = {k: v["total_s"] - before.get(k, 0.0) for k, v in after.items()
-                 if v["total_s"] - before.get(k, 0.0) > 0}
+        with tracing() as tracer:
+            tracer.clear()
+            t0 = time.perf_counter()
+            (req,) = server.run([SpmvRequest(rid=rid, dense=dense, x=x, objective="latency")])
+            wall = time.perf_counter() - t0
+            spans = {k: v["total_s"] for k, v in span_totals(tracer.spans()).items()
+                     if v["total_s"] > 0}
         entry = cache_entry(session, dense)
         bf16 = [b["schedule"]["accum_dtype"] == "bfloat16" for b in entry.blocks]
         # fused: bf16 only when every block asked for it; sequential: any block
@@ -2174,7 +2182,8 @@ def iteration_breakdown(session, web: np.ndarray, power_res, policy) -> dict:
 
 
 def run_solve_phase(tuner, web: np.ndarray, rim: np.ndarray) -> tuple[dict, dict]:
-    """The solvers through the public entry points; returns (payload, launches)."""
+    """The solvers through the public entry points, traced (the caller
+    switches the tracer on); returns (payload, launches)."""
     from repro_torch.obs.trace import get_tracer
 
     tracer = get_tracer()
@@ -5210,10 +5219,13 @@ def main() -> None:
         x = rng.normal(size=pool[n].shape[1]).astype(np.float32)
         reqs.append(SpmvRequest(rid=i, dense=pool[n], x=x, objective="latency"))
     reset_launches()
-    t0 = time.perf_counter()
-    server.run(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    with tracing() as tracer:
+        tracer.clear()
+        t0 = time.perf_counter()
+        server.run(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        by_name = span_totals(tracer.spans())
     launches = read_launches()
     served = []
     for r, n in zip(reqs, names):
@@ -5230,9 +5242,6 @@ def main() -> None:
     if not (stats["plans_computed"] < N_REQUESTS and stats["kernel_compiles"] < N_REQUESTS):
         raise AssertionError(f"no amortisation: {stats}")
     spans = server.summary()
-    from repro_torch.obs.trace import get_tracer
-
-    by_name = get_tracer().summary()["by_name"]
     emit("serve", seconds=serve_s, requests=served,
          session=stats, launches=launches, latency=spans.get("latency"),
          span_seconds={k: v["total_s"] for k, v in by_name.items()},
@@ -5415,7 +5424,8 @@ def main() -> None:
 
     # ---- solve: the iterative solvers, SpMV <-> SpMSpV (B1 and B6) --------
     t0 = time.perf_counter()
-    solved, got = run_solve_phase(tuner, extra["webgraph"], pool["rim"])
+    with tracing():
+        solved, got = run_solve_phase(tuner, extra["webgraph"], pool["rim"])
     for k in launches:
         launches[k] += got[k]
     torch.cuda.empty_cache()

@@ -269,12 +269,18 @@ class AutoSpmvSession:
     def _analyze(
         self, dense: np.ndarray, fingerprint: str | None = None
     ) -> tuple[str, SparsityFeatures, str]:
-        fp = fingerprint if fingerprint is not None else matrix_fingerprint(dense)
-        cached = self._feat_memo.get(fp)
-        if cached is not None:
-            self._feat_memo.move_to_end(fp)
-            return fp, cached[0], cached[1]
-        feats = extract_features(dense)
+        with _span("session.analyze") as sp:
+            fp = fingerprint
+            if fp is None:
+                with _span("matrix.fingerprint"):
+                    fp = matrix_fingerprint(dense)
+            cached = self._feat_memo.get(fp)
+            sp.set(memo_hit=cached is not None)
+            if cached is not None:
+                self._feat_memo.move_to_end(fp)
+                return fp, cached[0], cached[1]
+            with _span("features.extract"):
+                feats = extract_features(dense)
         self.stats.feature_extractions += 1
         bucket = self.cache.bucket_of(feats)
         self._feat_memo[fp] = (feats, bucket)
@@ -1170,7 +1176,14 @@ def build_tuner(
     if model is None:
         model = default_cost_model(device)
     names = tuple(names) if names is not None else MATRIX_NAMES[:8]
-    ds = tuning_dataset(scale, names, n_extra, model)
-    pred = AutoSpmvPredictor(PredictorConfig(max_regressor_samples=1500, device=device)).fit(ds)
-    overhead = overhead_predictor(scale, names, model, device) if fit_overhead else None
+    with _span("tuner.build", scale=scale):
+        with _span("tuner.dataset"):
+            ds = tuning_dataset(scale, names, n_extra, model)
+        with _span("tuner.fit"):
+            pred = AutoSpmvPredictor(
+                PredictorConfig(max_regressor_samples=1500, device=device)).fit(ds)
+        overhead = None
+        if fit_overhead:
+            with _span("tuner.overhead"):
+                overhead = overhead_predictor(scale, names, model, device)
     return AutoSpMV(pred, overhead, device=device, dataset=ds, cost_model=model)

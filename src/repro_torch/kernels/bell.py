@@ -40,6 +40,9 @@ from repro_torch.kernels.common import (
     check_operand,
     sm_count,
 )
+from repro_torch.obs.trace import NOOP_SPAN, get_tracer
+
+_TRACER = get_tracer()
 
 
 def bell_spmv_plain(
@@ -109,9 +112,20 @@ def bell_spmv(
         raise ValueError(f"the BELL kernel takes bc == 128, got {bc}")
     if data.data_ptr() % 16 or x_panels.data_ptr() % 16:
         raise ValueError("BELL data and x_panels must be 16-byte aligned")
+    segments = block_segments(nbr, mb, sm_count(dev))
+    with _TRACER.span("kernel.launch", kernel="bell_spmv") if _TRACER.enabled else NOOP_SPAN:
+        y = _bell_launch(data, block_cols, x_panels, segments, schedule)
+    bell_spmv.launches += 1
+    return y
+
+
+def _bell_launch(data, block_cols, x_panels, segments: int,
+                 schedule: KernelSchedule) -> torch.Tensor:
+    """Launch B4 over ``segments`` on checked CUDA operands; ``y: (nbr, br)``."""
     from repro_torch.kernels.build import bind, check_launch
 
-    segments = block_segments(nbr, mb, sm_count(dev))
+    dev = x_panels.device
+    nbr, mb, br, bc = data.shape
     y = torch.empty((nbr, br), dtype=torch.float32, device=dev)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = bind("spmv_bell", "spmv_bell_launch",
@@ -124,7 +138,6 @@ def bell_spmv(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     check_launch(err, "bell_spmv")
-    bell_spmv.launches += 1
     return y
 
 

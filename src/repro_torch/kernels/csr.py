@@ -53,6 +53,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand, sm_count
+from repro_torch.obs.trace import NOOP_SPAN, get_tracer
+
+_TRACER = get_tracer()
 
 # shared with csrc/spmv_csr.cu's spmv_csr_constants: threads per CTA and
 # hub rows per chunk at most; the nonzeros a chunk CTA's thread loads per
@@ -236,7 +239,8 @@ def csr_spmv(
         raise RuntimeError(f"csr_spmv has no kernel for device {dev}")
     plan = csr_launch_plan(indptr.shape[0] - 1, data.shape[0], schedule.rows_per_block,
                            schedule.unroll, sm_count(dev), n_cols=x.shape[0])
-    y = _csr_launch(data, indices, indptr, x, plan, schedule)
+    with _TRACER.span("kernel.launch", kernel="csr_spmv") if _TRACER.enabled else NOOP_SPAN:
+        y = _csr_launch(data, indices, indptr, x, plan, schedule)
     csr_spmv.launches += 1
     return y
 

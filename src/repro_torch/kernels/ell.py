@@ -38,6 +38,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand, sm_count
+from repro_torch.obs.trace import NOOP_SPAN, get_tracer
+
+_TRACER = get_tracer()
 
 # B2's launch (csrc/spmv_ell.cu): a group of G lanes per row, a CTA of 8
 # warps; the kernel's ``spmv_ell_constants`` returns the warps per CTA, and
@@ -150,7 +153,9 @@ def ell_spmv(
         return ell_spmv_plain(data, cols, x, schedule)
     if dev.type != "cuda":
         raise RuntimeError(f"ell_spmv has no kernel for device {dev}")
-    y = _ell_launch(data, cols, x, ell_launch_plan(R, W, sm_count(dev)), schedule)
+    plan = ell_launch_plan(R, W, sm_count(dev))
+    with _TRACER.span("kernel.launch", kernel="ell_spmv") if _TRACER.enabled else NOOP_SPAN:
+        y = _ell_launch(data, cols, x, plan, schedule)
     ell_spmv.launches += 1
     return y
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -50,7 +51,10 @@ from repro_torch.kernels.common import (
     resolve_device,
     sm_count,
 )
+from repro_torch.obs.trace import NOOP_SPAN, get_tracer
 from repro_torch.sparse.formats import BELL, CSR, ELL, SELL, _np, to_tensor
+
+_TRACER = get_tracer()
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +520,8 @@ def fused_spmv(
     if plan is None:
         plan = fused_launch_plan(rows.cpu().numpy(), tile_map.cpu().numpy(), tile, n_rows,
                                  sm_count(dev))
-    y = _fused_launch(data, cols, x, plan, unroll=unroll, accum_dtype=accum_dtype)
+    with _TRACER.span("kernel.launch", kernel="fused_spmv") if _TRACER.enabled else NOOP_SPAN:
+        y = _fused_launch(data, cols, x, plan, unroll=unroll, accum_dtype=accum_dtype)
     fused_spmv.launches += 1
     return y
 
@@ -551,12 +556,29 @@ class FusedSpmv:
         return int(self.tile_map.shape[0])
 
     def __call__(self, x) -> torch.Tensor:
+        """``y = A @ x``; with the tracer on, one ``spmv.call`` span as
+        ``PreparedSpmv.__call__`` opens (``fmt`` ``"fused"``, ``bytes`` the
+        stream, ``x`` and ``y``)."""
+        if not _TRACER.enabled:
+            return self._call(x)
+        x = torch.as_tensor(x)
+        nbytes = self._stored_bytes + 4 * (x.numel() + self.n_rows)
+        with _TRACER.device_span("spmv.call", self.device, fmt="fused", bytes=nbytes):
+            return self._call(x)
+
+    def _call(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
         y = fused_spmv(
             self.data, self.cols, self.rows, self.tile_map, x, self.n_rows, self.tile,
             unroll=self.unroll, accum_dtype=self.accum_dtype, plan=self.launch_plan,
         )
         return y[: self.n_rows]
+
+    @cached_property
+    def _stored_bytes(self) -> int:
+        from repro_torch.kernels.ops import stored_bytes
+
+        return stored_bytes(self)
 
 
 def fused_schedule_params(schedules: list[KernelSchedule], tile: int) -> tuple[int, str]:

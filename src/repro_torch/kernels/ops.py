@@ -24,6 +24,7 @@ from __future__ import annotations
 import hashlib
 from collections import OrderedDict
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Any, Hashable
 
 import numpy as np
@@ -36,7 +37,9 @@ from repro_torch.kernels.common import (
     resolve_device,
 )
 from repro_torch.obs.metrics import get_metrics
-from repro_torch.obs.trace import span as _span
+from repro_torch.obs.trace import get_tracer, span as _span
+
+_TRACER = get_tracer()
 
 # memo counters mirrored into the process metrics registry so a metrics
 # export sees kernel-compile economics without importing this module
@@ -99,16 +102,43 @@ def spmspv(
     return csc_spmspv(mat, active, xvals, schedule)
 
 
+def stored_bytes(mat) -> int:
+    """Bytes a container stores for its kernel: ``nbytes_core`` where the
+    format keeps companions its kernel never reads, else ``nbytes``, else
+    its tensors'."""
+    for attr in ("nbytes_core", "nbytes"):
+        n = getattr(mat, attr, None)
+        if n is not None:
+            return int(n)
+    return sum(t.numel() * t.element_size() for t in vars(mat).values()
+               if isinstance(t, torch.Tensor))
+
+
 @dataclass(frozen=True)
 class PreparedSpmv:
-    """A (format, schedule)-specialized SpMV — what compile-time mode emits."""
+    """A (format, schedule)-specialized SpMV — what compile-time mode emits.
+
+    With the tracer on, a call is one ``spmv.call`` span (device-timed on a
+    CUDA device) carrying ``fmt`` and ``bytes``: the stored container plus
+    one float32 ``x`` and ``y``, counted once per kernel."""
 
     mat: Any  # a registered format container (CSR / ELL / BELL / SELL / plugin)
     schedule: KernelSchedule
     device: torch.device
 
     def __call__(self, x) -> torch.Tensor:
-        return spmv(self.mat, x, self.schedule)
+        if not _TRACER.enabled:
+            return spmv(self.mat, x, self.schedule)
+        fmt, nbytes = self._trace_attrs
+        with _TRACER.device_span("spmv.call", self.device, fmt=fmt, bytes=nbytes):
+            return spmv(self.mat, x, self.schedule)
+
+    @cached_property
+    def _trace_attrs(self) -> tuple[str, int]:
+        from repro_torch.sparse.registry import spec_for
+
+        n_rows, n_cols = self.mat.shape
+        return spec_for(self.mat).name, stored_bytes(self.mat) + 4 * (n_rows + n_cols)
 
 
 def matrix_fingerprint(dense: np.ndarray) -> str:

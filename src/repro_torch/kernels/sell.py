@@ -31,6 +31,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KernelSchedule, bf16_round, check_operand, sm_count
+from repro_torch.obs.trace import NOOP_SPAN, get_tracer
+
+_TRACER = get_tracer()
 
 SELL_ROW_THREADS = (1, 2, 4, 8, 16, 32)  # P, threads per row
 SELL_MAX_THREADS = 1024  # per CTA: csrc/spmv_sell.cu's spmv_sell_constants
@@ -204,7 +207,8 @@ def sell_spmv(
     if dev.type != "cuda":
         raise RuntimeError(f"sell_spmv has no kernel for device {dev}")
     plan = sell_launch_plan(n_slices, C, data.shape[0] / max(n_slices * C, 1), sm_count(dev))
-    y = _sell_launch(data, cols, slice_ptr, slice_width, x, C, plan, schedule)
+    with _TRACER.span("kernel.launch", kernel="sell_spmv") if _TRACER.enabled else NOOP_SPAN:
+        y = _sell_launch(data, cols, slice_ptr, slice_width, x, C, plan, schedule)
     sell_spmv.launches += 1
     return y
 

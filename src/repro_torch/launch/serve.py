@@ -62,6 +62,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.session import AutoSpmvSession, build_tuner
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import init_params, model_specs
+from repro_torch.obs.trace import tracing
 from repro_torch.sparse.generate import MATRIX_NAMES, generate_by_name
 from repro_torch.sparse.registry import default_format, format_names
 from repro_torch.train.serve import (
@@ -406,8 +407,9 @@ def main(argv=None):
                     help="write the metrics registry as a JSONL shard here "
                          "after serving")
     ap.add_argument("--trace-export", default=None,
-                    help="append the collected spans as a JSONL shard here "
-                         "after serving")
+                    help="SpMV mode: trace the run (the tracer is off "
+                         "otherwise) and append its spans as a JSONL shard "
+                         "here after serving")
     ap.add_argument("--obs-instance", default="serve",
                     help="instance label stamped into exported shards")
     ap.add_argument("--metrics-port", type=int, default=None,
@@ -442,7 +444,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.spmv:
-        return serve_spmv(args)
+        with tracing(bool(args.trace_export)):  # the spans the run exports
+            return serve_spmv(args)
     if args.arch is None:
         ap.error("--arch is required unless --spmv is given")
     return serve_lm(args)

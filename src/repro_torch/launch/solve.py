@@ -32,6 +32,7 @@ import numpy as np
 
 from repro_torch.core.session import AutoSpmvSession, build_tuner
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs.trace import tracing
 from repro_torch.sparse.generate import (
     MATRIX_NAMES,
     PATTERN_NAMES,
@@ -218,12 +219,13 @@ def main(argv=None):
                     help="write the metrics registry as a JSONL shard here "
                          "after solving")
     ap.add_argument("--trace-export", default=None,
-                    help="append the collected spans as a JSONL shard here "
-                         "after solving")
+                    help="trace the run (the tracer is off otherwise) and "
+                         "append its spans as a JSONL shard here after solving")
     ap.add_argument("--obs-instance", default="solve",
                     help="instance label stamped into exported shards")
     args = ap.parse_args(argv)
-    return run_solve(args)
+    with tracing(bool(args.trace_export)):  # the spans the run exports
+        return run_solve(args)
 
 
 if __name__ == "__main__":

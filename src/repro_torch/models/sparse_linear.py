@@ -37,11 +37,12 @@ import torch
 
 from repro_torch.kernels.ops import compile_spmv, matrix_fingerprint
 from repro_torch.models.param import tree_map
-from repro_torch.obs.trace import span as _span
+from repro_torch.obs.trace import get_tracer, span as _span
 from repro_torch.optim.compress import magnitude_prune
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("models.sparse_linear")
+_TRACER = get_tracer()
 
 # Request SLO class -> the paper objective the planner optimizes for it.
 SLO_OBJECTIVES = {
@@ -171,23 +172,24 @@ class SparseInferenceEngine:
 
         Re-registering a name replaces the entry (plans are keyed by content
         fingerprint, so an identical re-registration costs nothing)."""
-        if isinstance(weight, torch.Tensor):
-            weight = weight.detach().float().cpu().numpy()
-        w = np.ascontiguousarray(np.asarray(weight, dtype=np.float32))
-        if w.ndim != 2:
-            raise ValueError(f"{name}: expected a 2-D weight, got shape {w.shape}")
-        a = np.ascontiguousarray(w.T)
-        density = float(np.count_nonzero(a)) / max(a.size, 1)
-        eligible = 0.0 < density <= self.density_threshold
-        layer = SparseLinear(
-            name=name,
-            weight_t=a,
-            fingerprint=matrix_fingerprint(a),
-            density=density,
-            d_in=a.shape[1],
-            d_out=a.shape[0],
-            spmv_eligible=eligible,
-        )
+        with _span("engine.register", layer=name):
+            if isinstance(weight, torch.Tensor):
+                weight = weight.detach().float().cpu().numpy()
+            w = np.ascontiguousarray(np.asarray(weight, dtype=np.float32))
+            if w.ndim != 2:
+                raise ValueError(f"{name}: expected a 2-D weight, got shape {w.shape}")
+            a = np.ascontiguousarray(w.T)
+            density = float(np.count_nonzero(a)) / max(a.size, 1)
+            eligible = 0.0 < density <= self.density_threshold
+            layer = SparseLinear(
+                name=name,
+                weight_t=a,
+                fingerprint=matrix_fingerprint(a),
+                density=density,
+                d_in=a.shape[1],
+                d_out=a.shape[0],
+                spmv_eligible=eligible,
+            )
         if name not in self._by_name:
             self.stats.registered += 1
             if eligible:
@@ -254,14 +256,20 @@ class SparseInferenceEngine:
         per token, in float32, cast back to ``x.dtype`` (the reference's
         per-token loop; there is no multi-vector route here). Otherwise
         contracts densely with the passed param leaf ``w`` (which holds the
-        same pruned values, so both routes agree numerically)."""
+        same pruned values, so both routes agree numerically). With the
+        tracer on, one ``engine.matmul`` span (``layer``, ``tokens``,
+        ``route``) around either route."""
         layer = self._by_name.get(name)
         tokens = int(np.prod(x.shape[:-1]))
-        if (
-            layer is None
-            or not layer.spmv_eligible
-            or tokens > self.max_spmv_tokens
-        ):
+        dense = layer is None or not layer.spmv_eligible or tokens > self.max_spmv_tokens
+        if not _TRACER.enabled:
+            return self._matmul(name, layer, x, w, objective, tokens, dense)
+        with _TRACER.span("engine.matmul", layer=name, tokens=tokens,
+                          route="dense" if dense else "spmv"):
+            return self._matmul(name, layer, x, w, objective, tokens, dense)
+
+    def _matmul(self, name, layer, x, w, objective, tokens: int, dense: bool):
+        if dense:
             if layer is not None:
                 self.stats.dense_fallbacks += 1
             return torch.einsum("...d,df->...f", x, w)

@@ -28,7 +28,8 @@ not just recording):
 
 ``obs_enabled``/``set_obs_enabled`` gate the whole layer: disabled, a span
 is one attribute read and a metric mutation is one boolean check — the
-serving path's no-op fast path.
+serving path's no-op fast path. The tracer starts off (``trace.tracing()`` or
+``set_obs_enabled(True)`` switches it on); the metrics registry starts on.
 """
 
 from repro_torch.obs.aggregate import merge_shards

@@ -618,7 +618,12 @@ class SpmvServer:
     ) -> dict[str, str]:
         """Export this instance's observability shards (fleet aggregation
         input): a metrics JSONL shard, a trace JSONL shard, and the summary
-        (with energy/latency aggregates) as JSON. Returns path strings."""
+        (with energy/latency aggregates) as JSON. Returns path strings.
+
+        The trace shard holds the spans collected since the last export;
+        the process tracer is left on, so the runs the next dump exports
+        are traced (a caller that wants this run's spans switches it on
+        first: ``obs.trace.tracing()``)."""
         import json
         from pathlib import Path
 
@@ -630,7 +635,9 @@ class SpmvServer:
         trace_path = out_dir / f"trace-{instance}.jsonl"
         summary_path = out_dir / f"summary-{instance}.json"
         self.metrics.write_shard(metrics_path, instance)
-        get_tracer().export_jsonl(trace_path)
+        tracer = get_tracer()
+        tracer.export_jsonl(trace_path)
+        tracer.enabled = True
         atomic_write_text(
             summary_path, json.dumps(self.summary(), indent=1, default=float)
         )

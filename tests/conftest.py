@@ -27,6 +27,11 @@ settings.register_profile(
 settings.load_profile("repro")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped where there is none (run: -m card)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -63,6 +63,7 @@ from torch_port_helpers import (
     reference_profile,
     same_clocks,
     tol_for,
+    traced,  # noqa: F401  (a fixture)
 )
 
 SCALE = 0.0015
@@ -427,7 +428,7 @@ def test_slo_request_and_metrics_endpoint_raise(tuners, clean):
         assert 'spmv_request_latency_seconds' in body and 'objective="efficiency"' in body
 
 
-def test_dump_obs_writes_shards(tuners, clean, tmp_path):
+def test_dump_obs_writes_shards(tuners, clean, traced, tmp_path):
     ours, _ = tuners
     get_tracer().clear()
     server = SpmvServer(AutoSpmvSession(ours))

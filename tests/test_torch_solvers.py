@@ -44,6 +44,7 @@ from repro_torch.solvers.pagerank import pagerank_reference
 from repro_torch.telemetry import AdaptiveFormatSelector
 
 from test_solvers import WEB_SCALE, _FakeOverhead, _FakePredictor, _spd
+from torch_port_helpers import traced  # noqa: F401  (a fixture)
 
 
 def _sessions(schedule_kw=None):
@@ -188,7 +189,7 @@ def test_adaptive_policy_flips_one_way(clean, web):
 
 
 # ------------------------------------------------------ amortization contract
-def test_fifty_iteration_solve_plans_exactly_once(clean, web):
+def test_fifty_iteration_solve_plans_exactly_once(clean, traced, web):
     ours_s, _ = _sessions()
     tracer = get_tracer()
     tracer.clear()

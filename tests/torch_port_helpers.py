@@ -95,6 +95,17 @@ def with_bcsr():
             reg.unregister_format("bcsr")
 
 
+@pytest.fixture
+def traced():
+    """The port's process tracer (off by default) switched on and emptied
+    for one test, then left as it was."""
+    from repro_torch.obs.trace import tracing
+
+    with tracing() as tracer:
+        tracer.clear()
+        yield tracer
+
+
 def reference_profile():
     """The reference cost model's constants as a port ``HardwareProfile``,
     handed over from the test so both packages score with the same numbers."""
